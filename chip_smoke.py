@@ -10,15 +10,20 @@ It drives the port's main path once at the benchmark's size and fails
 present. Phases, each printed with its result and time:
 
   0. versions, the card's name and power limit;
-  1. build the bitonic kernel library from the sources in the checkout;
-  1b. build the radix kernel library, in parallel with phase 1's build
-     (one nvcc per source, both started together);
-  2. the kernel against its plain PyTorch version at the main path's
-     shapes (keys exact, payloads as multisets per tied block), timed with
-     CUDA events;
+  1. build the three kernel libraries from the sources in the checkout:
+     the radix sort behind `device_sort`, the bitonic sort and the
+     radix-partition kernels (one nvcc per source, all started together);
+  2. both sort kernels against the plain sort at 2^24 and 2^24 + 12345,
+     tolerance 0: the radix sort, which is stable, element for element on
+     every plane (heavy ties under a random payload and INT32_MIN/MAX keys
+     among the cases), and against its own plain version
+     `plain_radix_sort`; the bitonic sort on its keys, its payloads as
+     multisets per tied block. Then the radix sort, the bitonic sort and
+     the chained `torch.sort` timed with CUDA events at the main path's
+     three shapes at 2^28, beside the sort's two bandwidth bounds;
   3. `build_suffix_array(enwik_like(2^28), device="cuda")`, then the
-     device verify and the host oracle's sufcheck; the kernel's launch
-     count over the build must be > 0;
+     device verify and the host oracle's sufcheck; over the build the
+     radix sort's launch count must be > 0 and the bitonic sort's 0;
   4. the SA byte-exact against the C++ oracle on enwik-like 2^24 text, the
      regression corpus and adversarial inputs that reach compaction;
   5. 256 LCS, 256 exact and 16 single-byte queries on the 2^28 index,
@@ -29,8 +34,14 @@ present. Phases, each printed with its result and time:
      granules 128, 1024 and 4096 to random and sequential rows), timed
      with CUDA events; then the radix-partition probe
      `microbench.radix_probe(28)`, whose JSON comes on a line of its own,
-     with every radix kernel's launch count over it > 0, and the bitonic
-     kernel's too (the probe's baseline sort).
+     with every radix kernel's launch count over it > 0, and the radix
+     sort's too (the probe's baseline sort; the bitonic sort's must be 0).
+
+Every kernel's entry in the report carries `bound_ms`, the least time the
+card could take: the bytes the function must move (each input read once,
+each output written once) over 3.35 TB/s, or its operations over the rate
+below if that were more; and `library_ms`, the time of one PyTorch call
+that computes the same function, where there is one.
 
 The kernel report (JSON) and the card's name and power limit come on the
 lines before the last; the last line is `{"ok": true, "device": {...}}`.
@@ -51,7 +62,15 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 INT32_MAX = 2**31 - 1
+INT32_MIN = -2**31
 LOG2N = 28  # the benchmark's text size, bench.py:55
+# Published peaks of one H100 SXM: device memory, and 32-bit operations
+# outside the tensor cores (67 TFLOP/s of float32 counts a multiply-add as
+# two; an integer operation is one).
+BYTES_PER_S = 3.35e12
+OPS_PER_S = 33.5e12
+# the main path's sorts: (name, planes, keys), doubling.py
+SORT_SHAPES = (("invert", 2, 1), ("initial", 4, 3), ("round", 5, 4))
 
 
 class SmokeFailure(Exception):
@@ -92,6 +111,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """`bound_ms` and `bound_by` of a function that must move `nbytes` and
+    do `ops` 32-bit operations."""
+    by_bytes = nbytes / BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return {"bound_ms": round(max(by_bytes, by_ops), 4),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def sort_bounds(n: int, c: int, nk: int) -> dict:
+    """A sort of c int32 planes by nk keys: every plane read and written
+    once, and n log2 n comparisons of nk words."""
+    return bound(8 * c * n, nk * n * math.log2(max(n, 2)))
+
+
+def radix_design_ms(n: int, c: int, nk: int) -> float:
+    """What the radix design's own traffic costs at the card's memory rate:
+    4 nk passes, each reading the key plane for its histogram, then reading
+    and writing all c planes. More bytes than the function needs, so not a
+    bound of the function: printed beside `bound_ms`, reported nowhere."""
+    return round(4 * nk * (2 * c + 1) * 4 * n / BYTES_PER_S * 1e3, 4)
+
+
 def canonical(keys, payloads):
     """Payloads sorted inside each tied key block: the order-free form of
     an unstable sort's output."""
@@ -107,13 +149,23 @@ def canonical(keys, payloads):
     return [plain_sort((block, p), 2)[1] for p in payloads]
 
 
-def phase2_kernel_vs_plain() -> list[dict]:
+def _exact_err(got, want) -> int:
+    """Largest absolute difference over planes compared element for
+    element."""
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def phase2_sorts_vs_plain() -> dict:
+    """Both sort kernels against the plain sort at 2^24, then timed with the
+    chained `torch.sort` at the main path's shapes at 2^28. Returns one
+    report per kernel: {"radix_sort": {...}, "bitonic_sort": {...}}."""
     import torch
-    from stringsearch_torch.ops import bitonic
+    from stringsearch_torch.ops import bitonic, radix_sort
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     n24 = 1 << 24
+    ragged = n24 + 12345
 
     def rand(n, lo, hi):
         return torch.randint(lo, hi, (n,), dtype=torch.int32, device="cuda",
@@ -123,7 +175,7 @@ def phase2_kernel_vs_plain() -> list[dict]:
         v = torch.tensor(values, dtype=torch.int32, device="cuda")
         return v[rand(n, 0, len(values))]
 
-    iota = torch.arange(n24 + 12345, dtype=torch.int32, device="cuda")
+    iota = torch.arange(ragged, dtype=torch.int32, device="cuda")
     cases = [
         # initial sort: 3 packed-byte keys + position (doubling.py l.192)
         ("initial C=4 keys=3", 3,
@@ -139,33 +191,106 @@ def phase2_kernel_vs_plain() -> list[dict]:
           rand(n24, 0, n24)]),
         # non-power-of-two n with INT32_MAX in every key plane
         ("int32max C=5 keys=4", 4,
-         [pick(n24 + 12345, [0, 1, 2, INT32_MAX]) for _ in range(4)]
-         + [iota]),
+         [pick(ragged, [0, 1, 2, INT32_MAX]) for _ in range(4)] + [iota]),
+        # stability: four distinct keys under random payloads
+        ("ties C=3 keys=1", 1,
+         [pick(ragged, [5, -3, 1 << 30, -(1 << 30)]),
+          rand(ragged, -2**31, INT32_MAX), rand(ragged, 0, 16)]),
+        # both ends of the int32 range in every key plane
+        ("extremes C=4 keys=2", 2,
+         [pick(ragged, [INT32_MIN, INT32_MIN + 1, -1, 0, INT32_MAX - 1,
+                        INT32_MAX]) for _ in range(2)]
+         + [rand(ragged, -2**31, INT32_MAX), iota]),
     ]
-    results = []
+    reports = {"radix_sort": {"shapes": []}, "bitonic_sort": {"shapes": []}}
     for name, nk, ops in cases:
-        got = bitonic.bitonic_sort(ops, nk)
-        want = bitonic.plain_sort(ops, nk)
-        torch.cuda.synchronize()
-        err = 0
-        for g, w in zip(got[:nk], want[:nk]):
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
-                               .abs().max()))
-        for g, w in zip(canonical(want[:nk], got[nk:]),
-                        canonical(want[:nk], want[nk:])):
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
-                               .abs().max()))
-        del got, want
-        ms = cuda_ms(lambda: bitonic.bitonic_sort(ops, nk), 3)
-        plain_ms = cuda_ms(lambda: bitonic.plain_sort(ops, nk), 3)
         n = ops[0].shape[0]
-        say(f"phase 2: {name} n={n}: max_abs_err={err} (tolerance 0), "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        check(err == 0, f"kernel disagrees with the plain sort on {name}")
-        results.append({"shape": name, "n": n, "max_abs_err": err,
-                        "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)})
+        want = bitonic.plain_sort(ops, nk)
+        got = radix_sort.radix_sort(ops, nk)
+        torch.cuda.synchronize()
+        radix_err = _exact_err(got, want)
+        got = bitonic.bitonic_sort(ops, nk)
+        torch.cuda.synchronize()
+        bitonic_err = _exact_err(got[:nk], want[:nk])
+        if len(ops) > nk:
+            bitonic_err = max(bitonic_err, _exact_err(
+                canonical(want[:nk], got[nk:]),
+                canonical(want[:nk], want[nk:])))
+        del got, want
+        radix_ms = cuda_ms(lambda: radix_sort.radix_sort(ops, nk), 3)
+        bitonic_ms = cuda_ms(lambda: bitonic.bitonic_sort(ops, nk), 3)
+        plain_ms = cuda_ms(lambda: bitonic.plain_sort(ops, nk), 3)
+        say(f"phase 2: {name} n={n}: max_abs_err radix {radix_err}, bitonic "
+            f"{bitonic_err} (tolerance 0); radix {radix_ms:.3f} ms, bitonic "
+            f"{bitonic_ms:.3f} ms, plain {plain_ms:.3f} ms")
+        check(radix_err == 0, f"the radix sort disagrees with the plain sort "
+                              f"on {name}")
+        check(bitonic_err == 0, f"the bitonic sort disagrees with the plain "
+                                f"sort on {name}")
+        for kernel, err, ms in (("radix_sort", radix_err, radix_ms),
+                                ("bitonic_sort", bitonic_err, bitonic_ms)):
+            reports[kernel]["shapes"].append({
+                "shape": name, "n": n, "max_abs_err": err,
+                "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)})
         del ops
-    return results
+
+    # the radix kernel against its own plain version, pass for pass
+    ops = [rand(n24, -2**31, INT32_MAX), rand(n24, -8, 8), iota[:n24]]
+    got = radix_sort.radix_sort(ops, 2)
+    want = radix_sort.plain_radix_sort(ops, 2)
+    err = _exact_err(got, want)
+    del got, want
+    own_ms = cuda_ms(lambda: radix_sort.plain_radix_sort(ops, 2), 1)
+    say(f"phase 2: radix_sort against plain_radix_sort C=3 keys=2 n={n24}: "
+        f"max_abs_err={err} (tolerance 0), plain_radix_sort {own_ms:.3f} ms")
+    check(err == 0, "the radix sort disagrees with plain_radix_sort")
+    reports["radix_sort"]["plain_radix_sort"] = {
+        "shape": f"C=3 keys=2 n={n24}", "max_abs_err": err,
+        "ms": round(own_ms, 4)}
+    del ops, iota
+    torch.cuda.empty_cache()
+
+    # the main path's shapes at its size: full-range random keys and
+    # position planes
+    n = 1 << LOG2N
+    for name, c, nk in SORT_SHAPES:
+        ops = [rand(n, -2**31, INT32_MAX) for _ in range(nk)]
+        ops += [torch.arange(n, dtype=torch.int32, device="cuda")
+                for _ in range(c - nk)]
+        want = bitonic.plain_sort(ops, nk)
+        got = radix_sort.radix_sort(ops, nk)
+        torch.cuda.synchronize()
+        radix_err = _exact_err(got, want)
+        got = bitonic.bitonic_sort(ops, nk)
+        torch.cuda.synchronize()
+        bitonic_err = _exact_err(got[:nk], want[:nk])
+        del got, want
+        radix_ms = cuda_ms(lambda: radix_sort.radix_sort(ops, nk), 2)
+        bitonic_ms = cuda_ms(lambda: bitonic.bitonic_sort(ops, nk), 1)
+        library_ms = cuda_ms(lambda: bitonic.plain_sort(ops, nk), 2)
+        bounds = sort_bounds(n, c, nk)
+        say(f"phase 2: {name} C={c} keys={nk} n=2^{LOG2N}: max_abs_err radix "
+            f"{radix_err}, bitonic keys {bitonic_err} (tolerance 0); radix "
+            f"{radix_ms:.3f} ms, bitonic {bitonic_ms:.3f} ms, chained "
+            f"torch.sort {library_ms:.3f} ms; bound {bounds['bound_ms']} ms "
+            f"(every plane once); the radix design's own bytes take "
+            f"{radix_design_ms(n, c, nk)} ms")
+        check(radix_err == 0, f"the radix sort disagrees with the plain sort "
+                              f"at 2^{LOG2N}, {name}")
+        check(bitonic_err == 0, f"the bitonic sort's keys disagree with the "
+                                f"plain sort at 2^{LOG2N}, {name}")
+        for kernel, err, ms in (("radix_sort", radix_err, radix_ms),
+                                ("bitonic_sort", bitonic_err, bitonic_ms)):
+            # the chained torch.sort is the library call and, as
+            # `plain_sort`, the plain version device_sort takes on the CPU
+            reports[kernel]["shapes"].append({
+                "shape": f"{name} C={c} keys={nk}", "n": n,
+                "max_abs_err": err, "ms": round(ms, 4),
+                "plain_ms": round(library_ms, 4),
+                "library_ms": round(library_ms, 4), **bounds})
+        del ops
+        torch.cuda.empty_cache()
+    return reports
 
 
 def phase3_build():
@@ -173,7 +298,7 @@ def phase3_build():
     import stringsearch_torch as st
     from stringsearch_torch import oracle
     from stringsearch_torch.harness.corpus import enwik_like
-    from stringsearch_torch.ops import bitonic
+    from stringsearch_torch.ops import bitonic, radix_sort
 
     n = 1 << LOG2N
     t0 = time.perf_counter()
@@ -184,17 +309,21 @@ def phase3_build():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    radix_sort.launches = 0
     bitonic.launches = 0
     t0 = time.perf_counter()
     sa = st.build_suffix_array(text, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    launches = bitonic.launches
+    launches = radix_sort.launches
+    bitonic_launches = bitonic.launches
     peak = torch.cuda.max_memory_allocated()
     say(f"phase 3: build n={n}: {build_s:.4f} s, {n / build_s:.1f} B/s, "
         f"peak CUDA memory {peak} B ({peak / 2**30:.2f} GiB), "
-        f"bitonic launches {launches}")
-    check(launches > 0, "the build launched no bitonic kernel")
+        f"radix sort launches {launches}, bitonic launches "
+        f"{bitonic_launches}")
+    check(launches > 0, "the build launched no radix sort")
+    check(bitonic_launches == 0, "the build launched the bitonic kernel")
     check(sa.sa.device.type == "cuda" and sa.sa.dtype == torch.int32,
           "SA is not an int32 CUDA tensor")
 
@@ -218,7 +347,8 @@ def phase3_build():
     check(rc == 0, f"oracle.sufcheck rejected the SA (rc={rc})")
     return sa, text_np, sa_host, {"n": n, "build_s": build_s,
                                   "rebuild_s": rebuild_s, "peak_bytes": peak,
-                                  "launches": launches}
+                                  "launches": launches,
+                                  "bitonic_launches": bitonic_launches}
 
 
 def phase4_exact() -> None:
@@ -303,22 +433,26 @@ def phase5_queries(sa, text_np, sa_host) -> dict:
 
 
 def phase1_build_kernels() -> None:
-    """Build and load both kernel libraries, one nvcc each, side by side."""
+    """Build and load the three kernel libraries, one nvcc each, side by
+    side."""
     from concurrent.futures import ThreadPoolExecutor
-    from stringsearch_torch.ops import bitonic, radix
+    from stringsearch_torch.ops import bitonic, radix, radix_sort
 
     def timed(load):
         t0 = time.perf_counter()
         load()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        t_bitonic = pool.submit(timed, bitonic.load_library)
-        t_radix = pool.submit(timed, radix.load_library)
-        say(f"phase 1: built and loaded the bitonic kernel in "
-            f"{t_bitonic.result():.2f} s")
-        say(f"phase 1b: built and loaded the radix kernels in "
-            f"{t_radix.result():.2f} s (built beside phase 1's)")
+    libraries = (("the radix sort", radix_sort), ("the bitonic sort", bitonic),
+                 ("the radix-partition kernels", radix))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        times = [pool.submit(timed, module.load_library)
+                 for _, module in libraries]
+        for (what, _), t in zip(libraries, times):
+            say(f"phase 1: built and loaded {what} in {t.result():.2f} s")
+    say(f"phase 1: three libraries built side by side in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def max_abs_err(got, want) -> int:
@@ -335,10 +469,10 @@ def max_abs_err(got, want) -> int:
 def phase6_radix() -> tuple[dict, int]:
     """The radix kernels against their plain versions at n = 2^28, then the
     radix-partition probe. Returns one report per radix kernel and the
-    bitonic kernel's launches in the probe."""
+    radix sort's launches in the probe."""
     import torch
     from stringsearch_torch.harness import microbench
-    from stringsearch_torch.ops import bitonic, radix
+    from stringsearch_torch.ops import bitonic, radix, radix_sort
 
     n = 1 << LOG2N
     gen = torch.Generator(device="cuda")
@@ -359,26 +493,35 @@ def phase6_radix() -> tuple[dict, int]:
     del low24
     report = {k: {"shapes": []} for k in ("hist", "dest", "place", "flush")}
 
-    def record(kernel, shape, err, fn, plain_fn, reps=5):
-        ms = cuda_ms(fn, reps)
+    def record(kernel, shape, err, fn, plain_fn, bounds, library_fn=None):
+        ms = cuda_ms(fn, 5)
         plain_ms = cuda_ms(plain_fn, 3)
+        library_ms = (None if library_fn is None
+                      else round(cuda_ms(library_fn, 3), 4))
         say(f"phase 6: {kernel} {shape}: max_abs_err={err} (tolerance 0), "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library call "
+            f"{library_ms} ms, bound {bounds['bound_ms']} ms")
         check(err == 0, f"radix {kernel} kernel disagrees with its plain "
                         f"version on {shape}")
         report[kernel]["shapes"].append({
             "shape": shape, "max_abs_err": err, "ms": round(ms, 4),
-            "plain_ms": round(plain_ms, 4)})
+            "plain_ms": round(plain_ms, 4), "library_ms": library_ms,
+            **bounds})
 
     for shift in (24, 0):
         got = radix.kernel_histograms(keys, 8192, shift)
         want = radix.plain_histograms(keys, 8192, shift)
         check(bool((got.sum(1) == 8192).all()),
               f"a histogram row does not sum to the tile (shift {shift})")
+        # the one library call: a bincount of tile * 256 + bin
+        cells = radix._block_bins(keys, 8192, shift)
         record("hist", f"n=2^{LOG2N} tile=8192 shift={shift}",
                max_abs_err(got, want),
                lambda s=shift: radix.kernel_histograms(keys, 8192, s),
-               lambda s=shift: radix.plain_histograms(keys, 8192, s))
+               lambda s=shift: radix.plain_histograms(keys, 8192, s),
+               bound(4 * n + 4 * 256 * (n // 8192), n),
+               lambda c=cells: torch.bincount(c, minlength=n // 8192 * 256))
+        del cells
 
     for name, k in key_sets.items():
         for tile in (1024, 2048):
@@ -390,14 +533,17 @@ def phase6_radix() -> tuple[dict, int]:
             dest_err = max(max_abs_err(dest, wdest), max_abs_err(lb, wlb))
             place_err = max(max_abs_err(gk, wk), max_abs_err(gp, wp))
             del dest, lb, gk, gp, wlb, wk, wp
+            # no single PyTorch call computes either function
             record("dest", shape, dest_err,
                    lambda k=k, t=tile: radix.kernel_dest(k, t, 24),
-                   lambda k=k, t=tile: radix.plain_dest(k, t, 24))
+                   lambda k=k, t=tile: radix.plain_dest(k, t, 24),
+                   bound(8 * n + 4 * 256 * (n // tile), n))
             record("place", shape, place_err,
                    lambda k=k, d=wdest, t=tile:
                    radix.kernel_place(k, pay, d, t),
                    lambda k=k, d=wdest, t=tile:
-                   radix.plain_place(k, pay, d, t))
+                   radix.plain_place(k, pay, d, t),
+                   bound(20 * n, n))
             del wdest
     del key_sets
 
@@ -410,27 +556,34 @@ def phase6_radix() -> tuple[dict, int]:
                     else torch.arange(rows, device="cuda")).to(torch.int32)
             err = max_abs_err(radix.kernel_granule_flush(desc, src, rows),
                               radix.plain_granule_flush(desc, src, rows))
+            # the one library call: index_copy_ of the rows
+            desc64 = desc.to(torch.int64)
+            out = torch.empty_like(src)
             record("flush", f"n=2^{LOG2N} granule={granule} {order} rows",
                    err,
                    lambda d=desc: radix.kernel_granule_flush(d, src, rows),
-                   lambda d=desc: radix.plain_granule_flush(d, src, rows))
-            del desc
+                   lambda d=desc: radix.plain_granule_flush(d, src, rows),
+                   bound(8 * n + 4 * rows, n),
+                   lambda d=desc64, o=out: o.index_copy_(0, d, src))
+            del desc, desc64, out
     del keys, pay, src
     torch.cuda.empty_cache()
 
     # the radix mode of the microbench, the path that runs these kernels and,
-    # for its baseline sort, the bitonic one
+    # for its baseline sort, the radix sort
     for k in radix.launches:
         radix.launches[k] = 0
+    radix_sort.launches = 0
     bitonic.launches = 0
     t0 = time.perf_counter()
     probe = microbench.radix_probe(LOG2N)
     torch.cuda.synchronize()
     launches = dict(radix.launches)
-    sort_launches = bitonic.launches
+    sort_launches = radix_sort.launches
     say(f"phase 6: radix_probe(2^{LOG2N}) in "
         f"{time.perf_counter() - t0:.2f} s, radix launches {launches}, "
-        f"bitonic launches {sort_launches}; its result:")
+        f"radix sort launches {sort_launches}, bitonic launches "
+        f"{bitonic.launches}; its result:")
     say(json.dumps(probe))
     check(probe["checks"] == {"hist": True, "group": True, "flush": True},
           f"radix_probe checks failed: {probe['checks']}")
@@ -446,7 +599,8 @@ def phase6_radix() -> tuple[dict, int]:
         check(count > 0, f"radix_probe launched no radix {k} kernel")
         report[k]["launches"] = count
     check(sort_launches > 0, "radix_probe's baseline sort launched no "
-                             "bitonic kernel")
+                             "radix sort")
+    check(bitonic.launches == 0, "radix_probe launched the bitonic kernel")
     return report, sort_launches
 
 
@@ -477,7 +631,7 @@ def main() -> int:
     try:
         phase1_build_kernels()
         t0 = time.perf_counter()
-        shapes = phase2_kernel_vs_plain()
+        sorts = phase2_sorts_vs_plain()
         say(f"phase 2: passed in {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         sa, text_np, sa_host, build = phase3_build()
@@ -496,8 +650,9 @@ def main() -> int:
         say(f"FAIL: {e}")
         return 1
 
-    # each radix kernel's headline: the first shape it was timed at, the one
-    # radix_probe times (random keys, tile 8192 / 1024, granule 128)
+    # each radix-partition kernel's headline: the first shape it was timed
+    # at, the one radix_probe times (random keys, tile 8192 / 1024, granule
+    # 128)
     radix_kernels = []
     for name, line in (("hist", 92), ("dest", 145), ("place", 191),
                        ("flush", 291)):
@@ -512,26 +667,44 @@ def main() -> int:
             "max_abs_err": max(s["max_abs_err"] for s in rep["shapes"]),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
             "timed_shape": head["shape"],
             "shapes": rep["shapes"],
         })
-    headline = next(s for s in shapes if s["shape"].startswith("round"))
-    say(json.dumps({"kernels": [{
-        "name": "bitonic_sort",
-        "route": "cuda",
-        "source": "stringsearch_torch/ops/csrc/bitonic.cu",
-        "replaces": "stringsearch_tpu/ops/bitonic.py:240",
-        "also_replaces": "stringsearch_tpu/ops/bitonic.py:263",
-        "launches": build["launches"],
-        "probe_launches": probe_sort_launches,
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": headline["ms"],
-        "plain_ms": headline["plain_ms"],
-        "timed_shape": f"{headline['shape']} n={headline['n']}",
-        "shapes": shapes,
-        "build": build,
-        "queries": queries,
-    }, *radix_kernels]}))
+
+    def sort_entry(name, source, launches, **more):
+        # headline: the round sort, the main path's largest, at its size
+        shapes = sorts[name]["shapes"]
+        head = next(s for s in shapes if s["shape"].startswith("round")
+                    and s["n"] == 1 << LOG2N)
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": "stringsearch_tpu/ops/bitonic.py:240",
+            "also_replaces": "stringsearch_tpu/ops/bitonic.py:263",
+            "launches": launches,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "timed_shape": f"{head['shape']} n={head['n']}",
+            "shapes": shapes,
+            **more,
+        }
+
+    say(json.dumps({"kernels": [
+        sort_entry("radix_sort", "stringsearch_torch/ops/csrc/radix_sort.cu",
+                   build["launches"], probe_launches=probe_sort_launches,
+                   plain_radix_sort=sorts["radix_sort"]["plain_radix_sort"],
+                   build=build, queries=queries),
+        sort_entry("bitonic_sort", "stringsearch_torch/ops/csrc/bitonic.cu",
+                   build["bitonic_launches"]),
+        *radix_kernels]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -7,8 +7,8 @@ the reference. This package imports torch and numpy, never jax.
 Layer map (mirrors stringsearch_tpu):
 
   engines/   SACA engines: doubling (+ the host oracle)
-  ops/       device_sort: the Hopper bitonic kernel and its plain version
-  oracle/    C++ host oracle (SA-IS + sufcheck/search), built by path
+  ops/       device_sort: the Hopper radix sort and its plain version
+  oracle/    C++ host oracle (SA-IS + sufcheck/search), its own csrc/saca.cpp
   harness/   corpus generators
   core/      SuffixArray, verify, search, compare
 

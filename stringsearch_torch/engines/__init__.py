@@ -2,7 +2,7 @@
 
 Counterpart of stringsearch_tpu/engines. Engines here:
 - "doubling": prefix-doubling SACA with tied-group compaction, every sort
-  through the Hopper bitonic kernel on CUDA.
+  through the Hopper radix sort on CUDA.
 - "oracle": the trusted host C++ SA-IS engine, for differential checks.
 "dc3" and "bstar" are not ported yet (ROADMAP, modules to port).
 """

@@ -10,8 +10,8 @@ same, step for step:
   3. cascaded compaction: tied-group members move to capacity-n/levels[i]
      arrays and only they are re-sorted, rank/SA updates scattered back.
 
-Every sort goes through `ops.bitonic.device_sort`: the Hopper kernel on
-CUDA, the plain stable sort on the CPU.
+Every sort goes through `ops.bitonic.device_sort`: the Hopper radix sort
+on CUDA, the plain chained sort on the CPU, both stable.
 
 What differs from the JAX package, and why:
   * The loops (`lax.while_loop`, `cond`, `switch`) are host loops that
@@ -25,10 +25,11 @@ What differs from the JAX package, and why:
   * The compaction rounds update rank and SA in place, in [n+1] buffers
     whose last slot absorbs the pads' writes (the reference's scatter
     with mode="drop").
-  * On CUDA the sort is not stable and `torch.topk` orders ties freely, so
-    tied-group members may come out of `_extract` in another order than in
-    the reference. Nothing downstream depends on that order: group
-    membership, heads and counts are the same, and the final SA is unique.
+  * On CUDA `torch.topk` orders ties freely, so tied-group members may
+    come out of `_extract` in another order than in the reference. Nothing
+    downstream depends on that order, nor on the sort's order inside ties:
+    group membership, heads and counts are the same, and the final SA is
+    unique.
 Indexes are int32 (n < 2^31); the int64 index mode is not ported yet.
 """
 

@@ -14,7 +14,7 @@ JSON. Every time is the median host wall of `reps` runs after one warm-up,
 each ending in `torch.cuda.synchronize()`.
 
 How the reference's ops map here: a 1-D `lax.sort` is `device_sort` (the
-Hopper bitonic kernel on CUDA), as in the engine; a batched sort along
+Hopper radix sort on CUDA), as in the engine; a batched sort along
 dimension 1 is a chained stable `torch.sort` along dim 1; `top_k` is
 `torch.topk`; a vmapped `dynamic_slice` is a row gather from `unfold`.
 Two rows of the reference's op table are sorts the kernel does not take,
@@ -348,7 +348,7 @@ def radix_probe(log_n: int, reps: int = 3, device="cuda") -> dict:
     """Radix-partition stage costs against the port's sort (ops/radix.py).
 
       t_sort_1key_2op — the (key, payload) sort of n pairs by `device_sort`
-                  (the Hopper bitonic kernel on CUDA); the plain chained
+                  (the Hopper radix sort on CUDA); the plain chained
                   `torch.sort` beside it as t_sort_1key_2op_plain;
       checks    — the `check_*` functions of ops/radix.py on the device;
       t_hist    — per-tile 256-bin histograms (tile 8192);

@@ -3,16 +3,20 @@
     python -m stringsearch_torch.harness.profile_build
 
 At n = 2^24 and 2^28 bytes of enwik-like text it builds the suffix array
-with every sort on the Hopper bitonic kernel, then with the plain chained
-`torch.sort` in the kernel's place, and prints for each:
+with every sort on the Hopper radix sort (`device_sort`, the port as it
+is), then on the Hopper bitonic kernel (`bitonic_sort`) and on the plain
+chained `torch.sort` in its place, and prints for each:
   * the host wall of three builds after a warm-up one (each ends in
     `torch.cuda.synchronize()`), and the peak CUDA memory of a build;
   * the CUDA-event time of every `device_sort` call of one build, with its
     plane and key counts, and the build's device time outside the sorts;
   * from `torch.profiler` over one more build: the device time of each
-    kernel, summed by name, and the device's idle share, 1 - summed kernel
-    time / median unprofiled wall.
-Needs a CUDA device.
+    kernel, summed by name (`sort_hist_kernel`, `sort_scan_kernel` and
+    `sort_scatter_kernel` are the radix sort's three steps), and the
+    device's idle share, 1 - summed kernel time / median unprofiled wall.
+Then, on each of the three sorts, the build walls of the small and
+adversarial inputs that `chip_smoke.py` holds against the oracle, whose
+cost is many small sorts. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ import torch
 
 import stringsearch_torch as st
 from stringsearch_torch.engines import doubling
-from stringsearch_torch.harness.corpus import enwik_like
-from stringsearch_torch.ops import bitonic
+from stringsearch_torch.harness.corpus import enwik_like, regression_corpus
+from stringsearch_torch.ops import bitonic, radix_sort
 
 SIZES = (24, 28)
 
@@ -112,20 +116,69 @@ def profile(text, sort, label: str) -> None:
         doubling.device_sort = bitonic.device_sort
 
 
+def compaction_walls() -> None:
+    """Build walls of the inputs whose cost is many small sorts: the two
+    adversarial texts one by one, then the whole set that `chip_smoke.py`
+    holds against the oracle (those two, enwik-like text of 2^24 bytes and
+    the regression corpus) as one sum of build walls, on each sort."""
+    rng = np.random.default_rng(4)
+    ff = rng.integers(0, 256, 1 << 20, dtype=np.uint8)
+    ff[5000:5300] = 0xFF
+    inputs = {"ab*2^19": b"ab" * (1 << 19),
+              "random 2^20 + 300x0xFF": ff.tobytes()}
+    single = len(inputs)
+    inputs["enwik_like(2^24)"] = enwik_like(1 << 24)
+    inputs.update(regression_corpus())
+    texts = {name: torch.from_numpy(
+        np.frombuffer(data, dtype=np.uint8).copy()).to("cuda")
+        for name, data in inputs.items() if len(data) > 0}
+    sorts = (("radix kernel", bitonic.device_sort),
+             ("bitonic kernel", bitonic.bitonic_sort),
+             ("plain", bitonic.plain_sort))
+    for label, sort in sorts:
+        calls, walls = {}, {}
+        try:
+            for name, text in texts.items():
+                log = []
+                doubling.device_sort = _timed(sort, log)
+                _one_build(text)
+                calls[name] = len(log)
+                doubling.device_sort = sort
+                walls[name] = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    _one_build(text)
+                    walls[name].append(time.perf_counter() - t0)
+        finally:
+            doubling.device_sort = bitonic.device_sort
+        for name in list(texts)[:single]:
+            print(f"{name} {label}: {calls[name]} sorts a build, build wall "
+                  f"{', '.join(f'{w:.4f}' for w in walls[name])} s "
+                  f"(median {statistics.median(walls[name]):.4f} s)",
+                  flush=True)
+        total = sum(statistics.median(w) for w in walls.values())
+        print(f"all {len(texts)} oracle-checked inputs {label}: "
+              f"{sum(calls.values())} sorts, sum of median build walls "
+              f"{total:.4f} s", flush=True)
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    radix_sort.load_library()
     bitonic.load_library()
     for log2n in SIZES:
         text = torch.from_numpy(
             np.frombuffer(enwik_like(1 << log2n), dtype=np.uint8).copy()
         ).to("cuda")
-        profile(text, bitonic.device_sort, "kernel")
+        profile(text, bitonic.device_sort, "radix kernel")
+        profile(text, bitonic.bitonic_sort, "bitonic kernel")
         profile(text, bitonic.plain_sort, "plain")
         del text
         torch.cuda.empty_cache()
+    compaction_walls()
 
 
 if __name__ == "__main__":

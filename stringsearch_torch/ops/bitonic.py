@@ -1,17 +1,22 @@
-"""`device_sort`: every sort of the doubling engine, through one kernel.
+"""`device_sort`: every sort of the doubling engine, through one function.
 
 Counterpart of stringsearch_tpu/ops/bitonic.py. There, `device_sort` takes
 the Pallas bitonic network (`_local_sort_kernel` + `_make_cross`) when it
 is switched on and XLA's sort otherwise. Here it takes the hand-written
-Hopper bitonic sort (`csrc/bitonic.cu`) for every CUDA call, at every n,
-and the plain version below for tensors on the CPU. There is no other
-route and no fallback: on CUDA the operands must be int32 planes.
+Hopper radix sort (`ops/radix_sort.py`, `csrc/radix_sort.cu`) for every
+CUDA call, at every n, and the plain version below for tensors on the CPU.
+There is no other route and no fallback: on CUDA the operands must be
+int32 planes.
 
-The kernel is NOT stable (bitonic networks are not): ties in the key set
-come back in arbitrary order. Every call site in the engine either carries
-a unique last key or does not depend on order inside ties (see
-engines/doubling.py). The plain version is the chained stable sort, equal
-to `jax.lax.sort(operands, num_keys=...)` element for element.
+Both routes are stable and equal `jax.lax.sort(operands, num_keys=...)`
+element for element: the radix sort by construction, the plain version as
+a chained stable `torch.sort`.
+
+`bitonic_sort` is the port of the bitonic network itself
+(`csrc/bitonic.cu`). It is NOT stable (bitonic networks are not) and is
+slower than the radix sort at every shape the engine uses (PERF.md), so
+nothing routes through it; it stays as the counterpart of the two TPU
+kernels, held against the plain version by its tests and `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import threading
 import torch
 
 from stringsearch_torch.ops import _build
+from stringsearch_torch.ops.radix_sort import radix_sort
 
 _SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "bitonic.cu")
 _MAX_PLANES = 6
@@ -89,7 +95,8 @@ def plain_sort(operands, num_keys: int = 1) -> tuple:
 
 
 def bitonic_sort(operands, num_keys: int = 1) -> tuple:
-    """Sort 1-D int32 CUDA planes with the Hopper kernel. Not stable.
+    """Sort 1-D int32 CUDA planes with the Hopper bitonic kernel. Not
+    stable.
 
     Returns new tensors; the inputs are left as they are. Each output is
     one copy of its input, sorted in place by the kernel.
@@ -124,11 +131,11 @@ def bitonic_sort(operands, num_keys: int = 1) -> tuple:
 def device_sort(operands, num_keys: int = 1) -> tuple:
     """`lax.sort`-shaped sort of 1-D operands by their first `num_keys`.
 
-    CPU tensors go to `plain_sort`; every other tensor to the Hopper
-    kernel, which takes int32 CUDA planes only and raises on anything else.
-    Not stable on CUDA: callers must not rely on the order inside ties.
+    CPU tensors go to `plain_sort`; every other tensor to `radix_sort`,
+    which takes int32 CUDA planes only and raises on anything else. Stable
+    on both.
     """
     operands = tuple(operands)
     if operands[0].device.type == "cpu":
         return plain_sort(operands, num_keys)
-    return bitonic_sort(operands, num_keys)
+    return radix_sort(operands, num_keys)

@@ -1,10 +1,11 @@
 """Trusted host C++ oracle: independent SA-IS build, checker and search.
 
-Counterpart of stringsearch_tpu/oracle. The same C++ source
-(stringsearch_tpu/oracle/csrc/saca.cpp, read by path, so nothing of the
-JAX package is imported) is compiled with g++ on first use into the port's
-own build directory and bound with ctypes. All arrays here are host
-numpy arrays; `sort` returns a SuffixArray on the requested device.
+Counterpart of stringsearch_tpu/oracle. The port keeps its own copy of the
+C++ source (`csrc/saca.cpp`, byte-identical to the JAX package's, which a
+test holds it to, so both packages are judged by one oracle). It is
+compiled with g++ on first use into the port's own build directory and
+bound with ctypes. All arrays here are host numpy arrays; `sort` returns a
+SuffixArray on the requested device.
 """
 
 from __future__ import annotations
@@ -18,9 +19,8 @@ import numpy as np
 from stringsearch_torch.core.types import BytesLike, SuffixArray, host_u8
 from stringsearch_torch.ops import _build
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "stringsearch_tpu", "oracle", "csrc", "saca.cpp")
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "saca.cpp")
 _lock = threading.Lock()
 _lib = None
 

@@ -1,10 +1,13 @@
-"""Port of ops/bitonic.py: `device_sort`, its plain version and the kernel.
+"""Port of ops/bitonic.py: `device_sort`, its plain version and the
+bitonic kernel.
 
 The plain version is held against `jax.lax.sort` exactly (both are stable).
-The Hopper kernel is unstable, so against the plain version its keys must
-match exactly and each payload plane as a multiset inside every tied key
-block. Tests that launch the kernel are marked `cuda` and skip without a
-card; on a machine with one, run them with
+The Hopper bitonic kernel (`bitonic_sort`, which `device_sort` no longer
+routes through: the radix sort of tests/test_torch_radix_sort.py took its
+place) is unstable, so against the plain version its keys must match
+exactly and each payload plane as a multiset inside every tied key block.
+Tests that launch a kernel are marked `cuda` and skip without a card; on a
+machine with one, run them with
 `python -m pytest --noconftest -m cuda tests/test_torch_bitonic.py`
 (this file imports jax only inside the tests that compare with it).
 """
@@ -13,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from stringsearch_torch.ops import bitonic
+from stringsearch_torch.ops import bitonic, radix_sort
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -99,10 +102,10 @@ def test_reference_pallas_network_agrees(monkeypatch):
 def test_device_sort_takes_plain_version_on_cpu():
     rng = np.random.default_rng(5)
     ops = [torch.from_numpy(a) for a in _planes(rng, 300, 4, 3)]
-    before = bitonic.launches
+    before = bitonic.launches, radix_sort.launches
     got = bitonic.device_sort(ops, num_keys=3)
     want = bitonic.plain_sort(ops, num_keys=3)
-    assert bitonic.launches == before
+    assert (bitonic.launches, radix_sort.launches) == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -132,17 +135,21 @@ def test_int32_max_keys_lose_nothing_plain(n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1100, 1030, (1 << 16) + 12345])
-def test_int32_max_keys_lose_nothing_kernel(cuda, n):
+@pytest.mark.parametrize("kernel", ["bitonic", "radix"])
+def test_int32_max_keys_lose_nothing_kernel(cuda, kernel, n):
     k, j = _int32_max_case(n, n)
     ops = [torch.from_numpy(k).to(cuda), torch.from_numpy(j).to(cuda)]
-    before = bitonic.launches
-    got = bitonic.device_sort(ops, 1)
+    module = bitonic if kernel == "bitonic" else radix_sort
+    sort = bitonic.bitonic_sort if kernel == "bitonic" else bitonic.device_sort
+    before = module.launches
+    got = sort(ops, 1)
     torch.cuda.synchronize()
-    assert bitonic.launches == before + 1
+    assert module.launches == before + 1
     np.testing.assert_array_equal(np.sort(got[1].cpu().numpy()), j)
-    _assert_sorted_like([g.cpu() for g in got],
-                        bitonic.plain_sort([torch.from_numpy(k),
-                                            torch.from_numpy(j)], 1), 1)
+    want = bitonic.plain_sort([torch.from_numpy(k), torch.from_numpy(j)], 1)
+    _assert_sorted_like([g.cpu() for g in got], want, 1)
+    if kernel == "radix":  # stable: the payload order matches too
+        assert torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.cuda
@@ -154,20 +161,21 @@ def test_kernel_matches_plain(cuda, c, num_keys, n):
     arrays = _planes(rng, n, c, num_keys, lo=-(1 << 31), hi=(1 << 31) - 1)
     if n > 4:  # dense ties as well as extremes
         arrays[0][: n // 2] = rng.integers(-2, 2, n // 2, dtype=np.int32)
-    got = bitonic.device_sort([torch.from_numpy(a).to(cuda) for a in arrays],
-                              num_keys)
+    got = bitonic.bitonic_sort([torch.from_numpy(a).to(cuda) for a in arrays],
+                               num_keys)
     want = bitonic.plain_sort([torch.from_numpy(a) for a in arrays], num_keys)
     _assert_sorted_like([g.cpu() for g in got], want, num_keys)
 
 
 @pytest.mark.cuda
-def test_kernel_leaves_inputs_and_rejects_other_dtypes(cuda):
+@pytest.mark.parametrize("sort", [bitonic.bitonic_sort, bitonic.device_sort])
+def test_kernel_leaves_inputs_and_rejects_other_dtypes(cuda, sort):
     k = torch.tensor([3, 1, 2], dtype=torch.int32, device=cuda)
     v = torch.arange(3, dtype=torch.int32, device=cuda)
-    bitonic.device_sort((k, v), 1)
+    sort((k, v), 1)
     assert k.tolist() == [3, 1, 2] and v.tolist() == [0, 1, 2]
     with pytest.raises(TypeError):
-        bitonic.device_sort((k.to(torch.int64), v), 1)
+        sort((k.to(torch.int64), v), 1)
 
 
 @pytest.mark.parametrize("name", ["device stages 2", "device stages 1",

@@ -3,7 +3,8 @@
 Same numpy inputs through both packages; the port runs on the CPU, the JAX
 engine as its own tests run it (CPU, `lax.sort`). All outputs are integers
 and compared exactly (tolerance 0). Intermediate sorted states are compared
-per tied group as sets, the order the unstable CUDA sort may change.
+per tied group as sets: the order inside a group is one `torch.topk` may
+change on CUDA, and nothing downstream depends on it.
 To keep JAX compiles few, the generated cases share one length.
 """
 
