@@ -30,9 +30,11 @@ present. Phases, each printed with its result and time:
      every answer checked against the oracle, p50 batch times;
   6. the four radix kernels against their plain versions at n = 2^28,
      tolerance 0 (histograms at tile 8192 and shifts 24 and 0; grouping at
-     tiles 1024 and 2048 on random, two-bin and one-bin keys; the flush at
-     granules 128, 1024 and 4096 to random and sequential rows), timed
-     with CUDA events; then the radix-partition probe
+     tiles 1024 and 2048 on random, two-bin and one-bin keys and at tile
+     8192 on random keys, the destinations also against the kernel's steps
+     in plain PyTorch, `plain_dest_steps`, on the first 2^24 keys; the
+     flush at granules 128, 1024 and 4096 to random and sequential rows),
+     timed with CUDA events; then the radix-partition probe
      `microbench.radix_probe(28)`, whose JSON comes on a line of its own,
      with every radix kernel's launch count over it > 0, and the radix
      sort's too (the probe's baseline sort; the bitonic sort's must be 0).
@@ -523,8 +525,10 @@ def phase6_radix() -> tuple[dict, int]:
                lambda c=cells: torch.bincount(c, minlength=n // 8192 * 256))
         del cells
 
+    n24 = 1 << 24  # what `plain_dest_steps` is run on: whole tiles
     for name, k in key_sets.items():
-        for tile in (1024, 2048):
+        # 8192: a tile of eight warps, joined by the scan across warps
+        for tile in (1024, 2048) + ((8192,) if name == "random" else ()):
             shape = f"n=2^{LOG2N} tile={tile} shift=24 {name} keys"
             dest, lb = radix.kernel_dest(k, tile, 24)
             gk, gp = radix.kernel_place(k, pay, dest, tile)
@@ -532,7 +536,16 @@ def phase6_radix() -> tuple[dict, int]:
             wk, wp = radix.plain_place(k, pay, wdest, tile)
             dest_err = max(max_abs_err(dest, wdest), max_abs_err(lb, wlb))
             place_err = max(max_abs_err(gk, wk), max_abs_err(gp, wp))
-            del dest, lb, gk, gp, wlb, wk, wp
+            del gk, gp, wlb, wk, wp
+            sdest, slb = radix.plain_dest_steps(
+                k[:n24], tile, 24, radix.dest_warps_per_tile(tile))
+            steps_err = max(max_abs_err(dest[:n24], sdest),
+                            max_abs_err(lb[:n24 // tile], slb))
+            say(f"phase 6: dest {shape}: max_abs_err={steps_err} against "
+                f"plain_dest_steps on the first 2^24 keys (tolerance 0)")
+            check(steps_err == 0, f"radix dest kernel disagrees with "
+                                  f"plain_dest_steps on {shape}")
+            del dest, lb, sdest, slb
             # no single PyTorch call computes either function
             record("dest", shape, dest_err,
                    lambda k=k, t=tile: radix.kernel_dest(k, t, 24),

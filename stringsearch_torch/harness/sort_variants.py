@@ -1,9 +1,11 @@
-"""What each design choice of the two sort kernels buys, on one GPU.
+"""What each design choice of the two sort kernels and of the radix
+destination kernel buys, on one GPU.
 
-    python -m stringsearch_torch.harness.sort_variants
+    python -m stringsearch_torch.harness.sort_variants [sort] [dest]
 
-Builds copies of `ops/csrc/radix_sort.cu` (the sort behind `device_sort`)
-and of `ops/csrc/bitonic.cu` with one choice changed (the text replacements
+With no argument both families run. `sort` builds copies of
+`ops/csrc/radix_sort.cu` (the sort behind `device_sort`) and of
+`ops/csrc/bitonic.cu` with one choice changed (the text replacements
 in RADIX_VARIANTS and VARIANTS, each of which must match its source exactly
 once), checks every copy against the plain sort (the radix copies on every
 plane, the unstable bitonic copies on their keys), and times each with CUDA
@@ -12,18 +14,31 @@ keys plus a position plane. A bitonic time includes the copy of the input
 planes, as `bitonic_sort` makes one; a radix time includes the allocation
 of its two scratch sets, as `radix_sort` makes them. The variants run in
 order, then in reverse order, so a drift of the card's clock shows as a gap
-between the two times of one variant. The copies are written to and built
-in `stringsearch_torch/_build/variants/`. Needs a CUDA device.
+between the two times of one variant.
+
+`dest` does the same for `ss_radix_dest` of `ops/csrc/radix.cu`
+(DEST_VARIANTS: how the lanes of a bin find each other, the form of the
+vote loop, the warps that share a tile, the warps of a block, the registers
+a thread may take): for every copy it prints what `cuobjdump` says of the
+build (registers, stack, machine operations a segment), holds it against
+`plain_dest`, then times it at n = 2^28, shift 24, on random, two-bin and
+one-bin keys at tiles 1024, 2048 and 8192, two readings as above.
+
+The copies are written to and built in `stringsearch_torch/_build/variants/`.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from stringsearch_torch.ops import _build, bitonic, radix_sort
+from stringsearch_torch.ops import _build, bitonic, radix, radix_sort
 
 _DEVICE_STAGES = "constexpr int kGlobalGroupStages = 3;"
 _TILE_STAGES = "constexpr int kTileGroupStages = 2;"
@@ -85,10 +100,85 @@ SHAPES = ((2, 1), (4, 3), (5, 4))  # (planes, keys): invert, initial, round
 SIZES = (24, 28)
 
 
+# radix.cu, the destination kernel
+_PER_LANE = "constexpr int kDestPerLane = 32;"
+_BLOCK_WARPS = "constexpr int kDestBlockWarps = 8;"
+_RESIDENT = "constexpr int kDestResident = 768;"
+# first statement of `lanes_of_bin`, as _BALLOTS is of `lanes_of_digit`
+_LIVE_LANES = "  unsigned peers = live_lanes;\n"
+_DEST_MATCH_ANY = ("  return __match_any_sync(kFull, (live_lanes >> "
+                   "(threadIdx.x & 31)) & 1 ? b : kBins); "
+                   "unsigned peers = 0;\n")
+# the two statements of the bit loop that use the vote, and the form that
+# picks the vote or its complement by the bit
+_SIGN_VOTE = """    const unsigned vote = __ballot_sync(kFull, x < 0);
+    peers &= ~(vote ^ static_cast<unsigned>(x >> 31));
+"""
+_SELECT_VOTE = """    const unsigned vote = __ballot_sync(kFull, b >> bit & 1);
+    peers &= (b >> bit) & 1 ? vote : ~vote;
+"""
+# the ranking loop's way out, and the form that tests every segment
+_BREAK = """    if (j >= whole) break;
+    held[j] = ranked<true>(held[j], shift, count, kFull);
+"""
+_SKIP = """    if (j < whole)
+    held[j] = ranked<true>(held[j], shift, count, kFull);
+"""
+_DEST_TILES = (1024, 2048, 8192)
+
+
+def _dest(match_any=False, per_lane=None, block_warps=None, resident=None,
+          warps=None, select_votes=False, skip=False) -> tuple:
+    """(edits of radix.cu, warps per tile by tile). The edits: how the lanes
+    of a bin find each other, the keys a lane holds, the warps of a block,
+    the resident threads per SM the kernel is compiled for, which cap its
+    registers, the vote or its complement picked by the bit in place of the
+    sign-bit form, and a test of every segment of the unrolled ranking loop
+    in place of the one way out. `warps` replaces
+    `radix.dest_warps_per_tile` for the tiles it names."""
+    edits = []
+    if match_any:
+        edits.append((_LIVE_LANES, _DEST_MATCH_ANY))
+    if select_votes:
+        edits.append((_SIGN_VOTE, _SELECT_VOTE))
+    if skip:
+        edits.append((_BREAK, _SKIP))
+    if per_lane:
+        edits.append((_PER_LANE, _PER_LANE.replace("32", str(per_lane))))
+    if block_warps:
+        edits.append((_BLOCK_WARPS,
+                      _BLOCK_WARPS.replace("8", str(block_warps))))
+    if resident:
+        edits.append((_RESIDENT, _RESIDENT.replace("768", str(resident))))
+    return tuple(edits), dict(warps or {})
+
+
+DEST_VARIANTS = {
+    "dest as built": _dest(),
+    "dest match_any": _dest(match_any=True),
+    "dest vote or its complement by the bit": _dest(select_votes=True),
+    "dest tests every segment of the loop": _dest(skip=True),
+    "dest block of 4 warps": _dest(block_warps=4),
+    "dest block of 16 warps": _dest(block_warps=16),
+    "dest resident 512 threads": _dest(resident=512),
+    "dest resident 1024 threads": _dest(resident=1024),
+    "dest resident 1536 threads": _dest(resident=1536),
+    "dest resident 2048 threads": _dest(resident=2048),
+    "dest half the warps 64 keys a lane": _dest(
+        per_lane=64, warps={2048: 1, 8192: 4}),
+    "dest twice the warps 16 keys a lane": _dest(
+        per_lane=16, warps={1024: 2, 2048: 4, 8192: 16}),
+    "dest twice the warps": _dest(warps={1024: 2, 2048: 4, 8192: 16}),
+    "dest four times the warps": _dest(warps={1024: 4, 2048: 8, 8192: 32}),
+}
+
+
 def variant_source(name: str) -> str:
     """Write the patched copy of variant `name`'s source; returns its path."""
     if name in RADIX_VARIANTS:
         source, edits = radix_sort._SOURCE, RADIX_VARIANTS[name]
+    elif name in DEST_VARIANTS:
+        source, edits = radix._SOURCE, DEST_VARIANTS[name][0]
     else:
         source, edits = bitonic._SOURCE, VARIANTS[name]
     with open(source) as f:
@@ -125,11 +215,99 @@ def _ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> None:
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+def _launch_dest(lib, keys, tile: int, warps: int) -> tuple:
+    n = keys.shape[0]
+    dest = torch.empty_like(keys)
+    local_base = torch.empty((n // tile, 256), dtype=torch.int32,
+                             device=keys.device)
+    radix.launch(lib, "ss_radix_dest", keys.device, keys.data_ptr(), n, tile,
+                 24, warps, dest.data_ptr(), local_base.data_ptr())
+    return dest, local_base
+
+
+def _dest_code(lib) -> str:
+    """What `cuobjdump` says of the destination kernel's builds in `lib`:
+    registers and stack (spills) of each, and the machine operations from
+    the first vote of one unrolled segment to the first vote of the next
+    (eight votes a segment), the median over the unrolled loop."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, lib._name], capture_output=True,
+                              text=True).stdout
+
+    usage = dict(re.findall(
+        r"Function \S*dest_kernelILi(\d+)E\S*:\s*\n\s*(REG:\d+ STACK:\d+)",
+        dump("-res-usage")))
+    out = []
+    for body in dump("-sass").split("Function : ")[1:]:
+        build = re.match(r"\S*dest_kernelILi(\d+)E", body)
+        if not build:
+            continue
+        ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(\S+)", body, re.M)
+        votes = [i for i, op in enumerate(ops) if op.startswith("VOTE")]
+        # the unrolled loop comes first in the code; the compiler's copies
+        # of the votes for a diverged warp, which never run, follow it
+        strides = sorted(
+            b - a for a, b in list(zip(votes[::8], votes[8::8]))[:31])
+        per_segment = strides[len(strides) // 2] if strides else None
+        out.append(f"<{build[1]}> {usage.get(build[1], 'usage not found')} "
+                   f"{per_segment} operations a segment")
+    return "; ".join(out)
+
+
+def dest_main() -> None:
+    """Check and time every copy of the destination kernel."""
+    # name -> (library, warps per tile by tile); one nvcc each, side by side
+    with ThreadPoolExecutor(len(DEST_VARIANTS)) as pool:
+        libs = list(pool.map(
+            lambda name: radix.build(name.replace(" ", "_"),
+                                     variant_source(name)), DEST_VARIANTS))
+    built = {}
+    for (name, (_, warps)), lib in zip(DEST_VARIANTS.items(), libs):
+        built[name] = (lib, {t: warps.get(t, radix.dest_warps_per_tile(t))
+                             for t in _DEST_TILES})
+    for name, (lib, _) in built.items():
+        print(f"{name:40s} {_dest_code(lib)}", flush=True)
+    n = 1 << 28
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    keys = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    low24 = keys & 0x00FFFFFF
+    two_tops = torch.tensor([3 << 24, (250 << 24) - 2**32], dtype=torch.int32,
+                            device="cuda")
+    key_sets = {
+        "random": keys,
+        "two bins": low24 | two_tops[torch.randint(
+            0, 2, (n,), device="cuda", generator=gen)],
+        "one bin": low24 | (7 << 24),
+    }
+    del low24
+    order = list(built) + list(reversed(built))
+    for tile in _DEST_TILES:
+        for kind, k in key_sets.items():
+            want = radix.plain_dest(k, tile, 24)
+            for name, (lib, warps) in built.items():
+                got = _launch_dest(lib, k, tile, warps[tile])
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise RuntimeError(f"variant {name!r} ranks wrongly at "
+                                       f"tile {tile} on {kind} keys")
+                del got
+            del want
+            times = {name: [] for name in built}
+            for name in order:
+                lib, warps = built[name]
+                times[name].append(_ms(
+                    lambda: _launch_dest(lib, k, tile, warps[tile]), reps=5))
+            for name, (first, second) in times.items():
+                print(f"2^28 tile={tile} {kind:8s} {name:36s} "
+                      f"warps={built[name][1][tile]:2d} "
+                      f"{first:.4f} / {second:.4f} ms", flush=True)
+
+
+def sort_main() -> None:
+    """Check and time every copy of the two sort kernels."""
     # name -> (sort of planes by their first nk, planes compared exactly)
     sorts = {}
     for name in RADIX_VARIANTS:
@@ -174,6 +352,20 @@ def main() -> None:
                   f"{plain:.3f} ms", flush=True)
             del planes
             torch.cuda.empty_cache()
+
+
+def main(argv=None) -> None:
+    families = {"sort": sort_main, "dest": dest_main}
+    chosen = list(sys.argv[1:] if argv is None else argv) or list(families)
+    for name in chosen:
+        if name not in families:
+            raise SystemExit(f"unknown family {name!r}: {sorted(families)}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    for name in chosen:
+        families[name]()
 
 
 if __name__ == "__main__":

@@ -20,6 +20,9 @@ One plain version stands beside each TPU kernel, so that each kernel can be
 held against its own: `plain_histograms` (`_hist_kernel`), `plain_dest`
 (`_dest_kernel`), `plain_place` (`_place_kernel`) and `plain_granule_flush`
 (`_flush_kernel`). The `kernel_*` functions launch the kernels directly.
+`plain_dest_steps` repeats the steps of the destination kernel (warp runs,
+32-key segments, counters per warp, the scans over warps and bins) and is
+held against `plain_dest`; nothing on a card calls it.
 
 Not carried over from the reference, because they are Mosaic alignment
 rules and not semantics: n a multiple of 8 tiles (`block_histograms`),
@@ -41,6 +44,10 @@ from stringsearch_torch.ops import _build
 _SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "radix.cu")
 _I32 = torch.int32
 _BINS = 256
+# ss_radix_dest (csrc/radix.cu): the keys a lane holds, one of each 32-key
+# segment of its warp's run (kDestPerLane), and the most warps a tile takes.
+_DEST_PER_LANE = 32
+_DEST_MAX_WARPS = 32
 
 # Kernel launches in this process, by kernel.
 launches = {"hist": 0, "dest": 0, "place": 0, "flush": 0}
@@ -51,12 +58,29 @@ _lib = None
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "ss_radix_hist": [_P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P],
-    "ss_radix_dest": [_P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P,
-                      _P],
+    "ss_radix_dest": [_P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, _P, _P, _P],
     "ss_radix_place": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P, _P, _P],
     "ss_radix_flush": [_P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                        _P, _P],
 }
+
+
+def build(name: str, source: str) -> ctypes.CDLL:
+    """Build the kernel library `name` from `source` and load it."""
+    path = _build.build_library(
+        name, [source], [_build.nvcc(), *_build.NVCC_FLAGS])
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in _ARGTYPES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.ss_radix_error_string.argtypes = [ctypes.c_int]
+    lib.ss_radix_error_string.restype = ctypes.c_char_p
+    for fn in ("ss_radix_max_dest_tile", "ss_radix_max_place_tile",
+               "ss_radix_dest_per_lane"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
@@ -64,35 +88,30 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = _build.build_library(
-                "radix", [_SOURCE], [_build.nvcc(), *_build.NVCC_FLAGS])
-            lib = ctypes.CDLL(path)
-            for name, argtypes in _ARGTYPES.items():
-                getattr(lib, name).argtypes = argtypes
-                getattr(lib, name).restype = ctypes.c_int
-            lib.ss_radix_error_string.argtypes = [ctypes.c_int]
-            lib.ss_radix_error_string.restype = ctypes.c_char_p
-            for name in ("ss_radix_max_dest_tile", "ss_radix_max_place_tile"):
-                getattr(lib, name).argtypes = []
-                getattr(lib, name).restype = ctypes.c_int
+            lib = build("radix", _SOURCE)
+            if lib.ss_radix_dest_per_lane() != _DEST_PER_LANE:
+                raise RuntimeError(
+                    "csrc/radix.cu and ops/radix.py disagree on the keys a "
+                    "lane of ss_radix_dest holds")
             _lib = lib
         return _lib
 
 
 def max_tiles() -> dict:
-    """The largest tiles the kernels' shared memory holds, as csrc/radix.cu
-    derives them: {"dest": ..., "place": ...}. `kernel_dest` keeps a 256-bin
-    count per 32-key segment of a tile, `kernel_place` stages the tile's
-    keys and payloads. Builds the library on first use."""
+    """The largest tiles the kernels take, as csrc/radix.cu derives them:
+    {"dest": ..., "place": ...}. `kernel_dest` gives a tile at most 32 warps
+    whose lanes hold at most 32 keys each in registers (its shared memory,
+    256 counters a warp, does not bound the tile); `kernel_place` stages the
+    tile's keys and payloads in shared memory. Builds the library on first
+    use."""
     lib = load_library()
     return {"dest": lib.ss_radix_max_dest_tile(),
             "place": lib.ss_radix_max_place_tile()}
 
 
-def _launch(kernel: str, fn: str, device, *args) -> None:
-    """Call `fn` of the library on the current stream of `device`; count
-    the launch under `kernel`. Raises if the launch failed."""
-    lib = load_library()
+def launch(lib: ctypes.CDLL, fn: str, device, *args) -> None:
+    """Call `fn` of `lib` on the current stream of `device`. Raises if the
+    launch failed."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
@@ -100,6 +119,12 @@ def _launch(kernel: str, fn: str, device, *args) -> None:
         raise RuntimeError(f"{fn} launch failed: "
                            f"{lib.ss_radix_error_string(rc).decode()} "
                            f"(code {rc})")
+
+
+def _launch(kernel: str, fn: str, device, *args) -> None:
+    """`launch` on the package's own library; counts the launch under
+    `kernel`."""
+    launch(load_library(), fn, device, *args)
     launches[kernel] += 1
 
 
@@ -179,6 +204,76 @@ def plain_dest(keys: torch.Tensor, tile: int, shift: int) -> tuple:
     return dest, local_base
 
 
+def dest_warps_per_tile(tile: int) -> int:
+    """The warps `kernel_dest` gives one tile: the fewest of 1, 2, 4, ... 32
+    whose lanes hold at most 32 keys each, one of every 32-key segment of
+    the warp's run. 1 up to tile 1024, 2 up to 2048, 8 up to 8192."""
+    segments = -(-tile // 32)
+    warps = 1
+    while warps < _DEST_MAX_WARPS and -(-segments // warps) > _DEST_PER_LANE:
+        warps *= 2
+    return warps
+
+
+def _check_dest_warps(tile: int, warps: int) -> int:
+    """Segments a warp ranks when `warps` warps share a tile; raises unless
+    `warps` is a power of two up to 32 that leaves a lane at most 32 keys."""
+    if warps < 1 or warps > _DEST_MAX_WARPS or warps & (warps - 1):
+        raise ValueError(f"warps_per_tile={warps} must be a power of two in "
+                         f"1..{_DEST_MAX_WARPS}")
+    per_lane = -(-(-(-tile // 32)) // warps)
+    if per_lane > _DEST_PER_LANE:
+        raise ValueError(f"tile={tile} on {warps} warps gives a lane "
+                         f"{per_lane} keys; it holds {_DEST_PER_LANE}")
+    return per_lane
+
+
+def plain_dest_steps(keys: torch.Tensor, tile: int, shift: int,
+                     warps_per_tile: int) -> tuple:
+    """`plain_dest` by the steps of the kernel `ss_radix_dest`.
+
+    A tile is cut into `warps_per_tile` contiguous runs, one warp each, of
+    `per_lane` 32-key segments (the last run, and its last segment, may be
+    short). A warp takes its segments in order and carries 256 counters: a
+    key's rank in the run is its bin's count before the segment plus the
+    lower lanes of the segment with its bin. The counters are then summed
+    exclusively over the warps in order and the tile's totals scanned
+    exclusively over the bins (local_base); dest is the sum of the three.
+    """
+    n = keys.shape[0]
+    per_lane = _check_dest_warps(tile, warps_per_tile)
+    tiles = n // tile
+    device = keys.device
+    run = per_lane * 32
+    padded = warps_per_tile * run
+    # [tiles, warps, segments, lanes]; slots past the tile's end are dead
+    slot = torch.arange(padded, device=device)
+    live = (slot < tile).reshape(1, warps_per_tile, per_lane, 32)
+    bins = torch.zeros((tiles, padded), dtype=torch.int64, device=device)
+    bins[:, :tile] = _bins(keys, shift).reshape(tiles, tile).to(torch.int64)
+    bins = bins.reshape(tiles, warps_per_tile, per_lane, 32)
+    lower = torch.tril(torch.ones((32, 32), dtype=torch.bool, device=device),
+                       -1)
+    count = torch.zeros((tiles, warps_per_tile, _BINS), dtype=torch.int64,
+                        device=device)
+    rank = torch.zeros_like(bins)
+    for j in range(per_lane):
+        b, alive = bins[:, :, j], live[:, :, j]
+        # peers[..., i, k]: lane k is live and holds lane i's bin
+        peers = (b.unsqueeze(-1) == b.unsqueeze(-2)) & alive.unsqueeze(-2)
+        before = torch.gather(count, 2, b)
+        rank[:, :, j] = before + (peers & lower).sum(-1)
+        count.scatter_add_(2, b, alive.expand_as(b).to(torch.int64))
+    earlier = torch.cumsum(count, 1) - count      # over the warps, in order
+    total = count.sum(1)
+    local_base = torch.cumsum(total, 1) - total   # over the bins
+    first = earlier + local_base.unsqueeze(1)     # [tiles, warps, 256]
+    dest = rank + torch.gather(first, 2, bins.reshape(
+        tiles, warps_per_tile, run)).reshape(bins.shape)
+    dest = dest.reshape(tiles, padded)[:, :tile].reshape(n)
+    return dest.to(_I32), local_base.to(_I32)
+
+
 def plain_place(keys: torch.Tensor, payload: torch.Tensor,
                 dest: torch.Tensor, tile: int) -> tuple:
     """(gk, gp): keys and payloads scattered to tile_base + dest."""
@@ -222,23 +317,24 @@ def kernel_histograms(keys: torch.Tensor, tile: int,
 
 
 def kernel_dest(keys: torch.Tensor, tile: int, shift: int) -> tuple:
-    """`plain_dest` on the Hopper kernel `ss_radix_dest`; tile at most
-    `max_tiles()["dest"]`."""
+    """`plain_dest` on the Hopper kernel `ss_radix_dest`, a tile on
+    `dest_warps_per_tile(tile)` warps; tile at most `max_tiles()["dest"]`."""
     _check_int32("keys", keys)
     _check_cuda(keys)
     n = keys.shape[0]
     _check_tiling(n, tile, shift)
     limit = max_tiles()["dest"]
     if tile > limit:
-        raise ValueError(f"tile={tile}: the grouping kernel's shared memory "
-                         f"holds tiles of at most {limit} keys")
+        raise ValueError(f"tile={tile}: the grouping kernel's warps hold "
+                         f"tiles of at most {limit} keys")
     keys = keys.contiguous()
     dest = torch.empty((n,), dtype=_I32, device=keys.device)
     local_base = torch.empty((n // tile, _BINS), dtype=_I32,
                              device=keys.device)
     if n:
         _launch("dest", "ss_radix_dest", keys.device, keys.data_ptr(), n,
-                tile, shift, dest.data_ptr(), local_base.data_ptr())
+                tile, shift, dest_warps_per_tile(tile), dest.data_ptr(),
+                local_base.data_ptr())
     return dest, local_base
 
 

@@ -43,10 +43,37 @@ def _one_bin_keys(seed: int, n: int, shift: int = 24) -> np.ndarray:
     return (keys & mask) | (np.uint32(7) << np.uint32(shift))
 
 
+def _all_equal_keys(seed: int, n: int, shift: int = 24) -> np.ndarray:
+    """One 32-bit pattern everywhere."""
+    return np.full(n, 0xDEADBEEF, dtype=np.uint32)
+
+
+_KEY_SETS = {"random": _random_keys, "two bins": _two_bin_keys,
+             "one bin": _one_bin_keys, "all equal": _all_equal_keys}
+
+
 def _ref():
     from stringsearch_tpu.ops import radix as ref
 
     return ref
+
+
+def _keys_of(kind: str, seed: int, n: int, shift: int) -> torch.Tensor:
+    if kind == "random":
+        return _bits(_random_keys(seed, n))
+    return _bits(_KEY_SETS[kind](seed, n, shift))
+
+
+def _valid_warps(tile: int) -> list:
+    """The warps per tile the destination kernel takes for `tile`: powers
+    of two up to 32 that leave a lane at most 32 keys."""
+    return [w for w in (1, 2, 4, 8, 16, 32) if -(-(-(-tile // 32)) // w) <= 32]
+
+
+_STEP_TILES = (1, 32, 100, 1000, 1024, 2048, 8192)
+# the rule's own choice, every other valid one of 1/2/4/8, and a whole block
+_TILE_WARPS = [(t, w) for t in _STEP_TILES for w in _valid_warps(t)
+               if w in (1, 2, 4, 8, 32) or w == min(_valid_warps(t))]
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +174,96 @@ def test_plain_dest_is_a_stable_tile_local_permutation(tile):
     np.testing.assert_array_equal(local_base[:, 0].numpy(), 0)
 
 
+@pytest.mark.parametrize("shift", [0, 8, 24, 25, 31])
+@pytest.mark.parametrize("kind", ["all equal", "one bin", "random",
+                                  "two bins"])
+@pytest.mark.parametrize("tile,warps", _TILE_WARPS)
+def test_plain_dest_steps_equal_plain_dest(tile, warps, kind, shift):
+    """The destination kernel's steps (warp runs, 32-key segments, counters
+    per warp, scans over warps and bins) give `plain_dest` exactly."""
+    n = 3 * tile
+    keys = _keys_of(kind, tile + warps + shift, n, shift)
+    dest, local_base = radix.plain_dest_steps(keys, tile, shift, warps)
+    want_dest, want_lb = radix.plain_dest(keys, tile, shift)
+    assert dest.dtype == torch.int32 and local_base.dtype == torch.int32
+    assert torch.equal(dest, want_dest)
+    assert torch.equal(local_base, want_lb)
+
+
+@pytest.mark.parametrize("tile,keys", [
+    (1024, "random"), (1024, "two bins"), (2048, "random"),
+    (2048, "two bins")])
+def test_plain_dest_steps_equal_reference(tile, keys):
+    """The steps against the reference's `local_group` in interpret mode:
+    its local_base, and its grouped keys and payloads once `plain_place`
+    has applied the destinations. Tolerance 0."""
+    import jax.numpy as jnp
+
+    n = 8 * 1024
+    k = {"random": _random_keys(17, n), "two bins": _two_bin_keys(18, n)}[keys]
+    pay = np.random.default_rng(19).integers(0, 1 << 31, n, dtype=np.int32)
+    wk, wp, wl = (np.asarray(x) for x in _ref().local_group(
+        jnp.asarray(k), jnp.asarray(pay), tile=tile, interpret=True))
+    warps = radix.dest_warps_per_tile(tile)
+    dest, local_base = radix.plain_dest_steps(_bits(k), tile, 24, warps)
+    gk, gp = radix.plain_place(_bits(k), torch.from_numpy(pay), dest, tile)
+    np.testing.assert_array_equal(local_base.numpy(), wl)
+    np.testing.assert_array_equal(gk.numpy().view(np.uint32), wk)
+    np.testing.assert_array_equal(gp.numpy(), wp)
+
+
+@pytest.mark.parametrize("tile,warps", [
+    (1, 1), (100, 1), (1024, 1), (1025, 2), (2048, 2), (2049, 4), (4096, 4),
+    (8192, 8), (8193, 16), (16384, 16), (29056, 32), (32768, 32)])
+def test_dest_warps_per_tile_is_the_fewest_that_fit(tile, warps):
+    assert radix.dest_warps_per_tile(tile) == warps
+    assert warps == min(_valid_warps(tile))
+    assert radix._check_dest_warps(tile, warps) <= 32
+
+
+@pytest.mark.parametrize("tile,warps", [(2048, 1), (8192, 4), (32800, 32),
+                                        (1024, 3), (1024, 0), (1024, 64)])
+def test_plain_dest_steps_reject_warps_the_kernel_does_not_take(tile, warps):
+    with pytest.raises(ValueError, match="warps|keys"):
+        radix.plain_dest_steps(torch.zeros(tile, dtype=torch.int32), tile, 24,
+                               warps)
+
+
+DEST_VARIANTS = ["dest match_any", "dest vote or its complement by the bit",
+                 "dest tests every segment of the loop",
+                 "dest block of 4 warps", "dest block of 16 warps",
+                 "dest resident 512 threads", "dest resident 1024 threads",
+                 "dest resident 1536 threads", "dest resident 2048 threads",
+                 "dest half the warps 64 keys a lane",
+                 "dest twice the warps 16 keys a lane", "dest twice the warps",
+                 "dest four times the warps"]
+
+
+@pytest.mark.parametrize("name", DEST_VARIANTS)
+def test_dest_variants_each_change_the_source_once(name):
+    """The design sweep patches the destination kernel's source by text, or
+    gives a tile other warps; each patch must still find its one place, and
+    every warp count must be one the kernel takes."""
+    from stringsearch_torch.harness import sort_variants
+
+    assert set(DEST_VARIANTS) | {"dest as built"} == set(
+        sort_variants.DEST_VARIANTS)
+    edits, warps = sort_variants.DEST_VARIANTS[name]
+    assert edits or warps
+    with open(radix._SOURCE) as f:
+        built = f.read()
+    with open(sort_variants.variant_source(name)) as f:
+        variant = f.read()
+    assert (variant != built) == bool(edits)
+    assert len(variant.splitlines()) == len(built.splitlines())
+    per_lane = {"64": 64, "16": 16}.get(name.split(" keys a lane")[0][-2:],
+                                         32)
+    for tile, w in warps.items():
+        assert tile in sort_variants._DEST_TILES
+        assert w in (1, 2, 4, 8, 16, 32)
+        assert -(-(tile // 32) // w) <= per_lane
+
+
 def test_one_bin_keys_keep_their_order():
     n, tile = 4 * 1024, 1024
     keys = _bits(_one_bin_keys(13, n))
@@ -232,18 +349,15 @@ def cuda():
     return torch.device("cuda")
 
 
-_KEY_SETS = {"random": _random_keys, "two bins": _two_bin_keys,
-             "one bin": _one_bin_keys}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [0, 8, 16, 24])
 @pytest.mark.parametrize("tile,tiles", [(8192, 8), (1024, 64), (1000, 3)])
-@pytest.mark.parametrize("kind", sorted(_KEY_SETS))
+@pytest.mark.parametrize("kind", ["one bin", "random", "two bins"])
 def test_hist_kernel_matches_plain(cuda, kind, tile, tiles, shift):
     n = tile * tiles
-    keys = _bits(_KEY_SETS[kind](n + shift, n) if kind == "random"
-                 else _KEY_SETS[kind](n + shift, n, shift))
+    keys = _keys_of(kind, n + shift, n, shift)
     before = radix.launches["hist"]
     got = radix.block_histograms(keys.to(cuda), tile=tile, chunk=tile,
                                  shift=shift)
@@ -254,16 +368,19 @@ def test_hist_kernel_matches_plain(cuda, kind, tile, tiles, shift):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shift", [0, 8, 16, 24])
-@pytest.mark.parametrize("tile,tiles", [(1024, 16), (2048, 8), (100, 5),
-                                        ("max", 2)])
-@pytest.mark.parametrize("kind", sorted(_KEY_SETS))
+@pytest.mark.parametrize("shift", [0, 8, 16, 24, 25, 31])
+@pytest.mark.parametrize("tile,tiles", [
+    (1024, 16), (2048, 8), (100, 5), ("max", 2), (1, 7), (32, 5), (1000, 3),
+    (8192, 3),
+    # tile counts that leave the last block of 8 warps part empty
+    (1024, 13), (2048, 7), (100, 17)])
+@pytest.mark.parametrize("kind", ["all equal", "one bin", "random",
+                                  "two bins"])
 def test_dest_and_place_kernels_match_plain(cuda, kind, tile, tiles, shift):
-    if tile == "max":  # the largest tile the grouping kernel takes
-        tile = radix.max_tiles()["dest"]
+    if tile == "max":  # the largest tile both grouping kernels take
+        tile = min(radix.max_tiles().values())
     n = tile * tiles
-    keys = _bits(_KEY_SETS[kind](n + shift, n) if kind == "random"
-                 else _KEY_SETS[kind](n + shift, n, shift))
+    keys = _keys_of(kind, n + shift, n, shift)
     pay = torch.from_numpy(
         np.random.default_rng(n).integers(-(1 << 31), 1 << 31, n,
                                           dtype=np.int32))
@@ -280,6 +397,54 @@ def test_dest_and_place_kernels_match_plain(cuda, kind, tile, tiles, shift):
     assert torch.equal(gk.cpu(), wk) and torch.equal(gp.cpu(), wp)
     assert radix.check_local_group(keys.to(cuda), pay.to(cuda), tile=tile,
                                    shift=shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one bin", "random", "two bins"])
+@pytest.mark.parametrize("tile,tiles", [
+    (32768, 2), (32767, 3), (16384, 3), (8193, 2), (5000, 5), (2049, 9),
+    (1025, 11), (33, 70)])
+def test_dest_kernel_matches_plain_and_its_steps(cuda, kind, tile, tiles):
+    """Tiles up to the destination kernel's own limit, most of them ending
+    in a partial segment, against `plain_dest` and `plain_dest_steps`."""
+    assert tile <= radix.max_tiles()["dest"] == 32 * 32 * 32
+    n = tile * tiles
+    keys = _keys_of(kind, n, n, 24).to(cuda)
+    before = radix.launches["dest"]
+    dest, lb = radix.kernel_dest(keys, tile, 24)
+    torch.cuda.synchronize()
+    assert radix.launches["dest"] == before + 1
+    for want in (radix.plain_dest(keys, tile, 24),
+                 radix.plain_dest_steps(keys, tile, 24,
+                                        radix.dest_warps_per_tile(tile))):
+        assert torch.equal(dest, want[0]) and torch.equal(lb, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,warps", _TILE_WARPS)
+def test_dest_kernel_on_every_warp_count_it_takes(cuda, tile, warps):
+    """The library's entry with the warps per tile given: ranks stay in
+    tile order however many warps share the tile (13 tiles, so the last
+    block is part empty). It refuses a count that leaves a lane too many
+    keys, and one that is no power of two."""
+    n = 13 * tile
+    keys = _bits(_two_bin_keys(tile + warps, n)).to(cuda)
+    lib = radix.load_library()
+
+    def launch(w):
+        dest = torch.empty_like(keys)
+        lb = torch.empty((13, 256), dtype=torch.int32, device=cuda)
+        radix.launch(lib, "ss_radix_dest", keys.device, keys.data_ptr(), n,
+                     tile, 24, w, dest.data_ptr(), lb.data_ptr())
+        torch.cuda.synchronize()
+        return dest, lb
+
+    dest, lb = launch(warps)
+    want_dest, want_lb = radix.plain_dest(keys, tile, 24)
+    assert torch.equal(dest, want_dest) and torch.equal(lb, want_lb)
+    for bad in (3, 64, min(_valid_warps(tile)) // 2):
+        with pytest.raises(RuntimeError, match="invalid"):
+            launch(bad)
 
 
 @pytest.mark.cuda
@@ -329,7 +494,7 @@ def test_check_functions_pass_on_the_card(cuda):
 def test_kernels_reject_other_dtypes_and_big_tiles(cuda):
     k64 = torch.zeros(2048, dtype=torch.int64, device=cuda)
     limits = radix.max_tiles()
-    assert limits["dest"] >= 2048 and limits["place"] >= limits["dest"]
+    assert limits["dest"] >= limits["place"] >= 2048
     k32 = torch.zeros(2 * limits["dest"] + 64, dtype=torch.int32,
                       device=cuda)
     with pytest.raises(TypeError):
@@ -344,3 +509,12 @@ def test_kernels_reject_other_dtypes_and_big_tiles(cuda):
     big = limits["dest"] + 32
     with pytest.raises(ValueError, match="at most"):
         radix.local_group(k32[:2 * big], k32[:2 * big], tile=big, chunk=big)
+    with pytest.raises(ValueError, match="at most"):
+        radix.kernel_dest(k32[:2 * big], big, 24)
+    # between the two limits the placement kernel refuses
+    between = limits["place"] + 32
+    if between <= limits["dest"]:
+        radix.kernel_dest(k32[:2 * between], between, 24)
+        with pytest.raises(ValueError, match="placement"):
+            radix.local_group(k32[:2 * between], k32[:2 * between],
+                              tile=between, chunk=between)
