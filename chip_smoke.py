@@ -37,7 +37,27 @@ present. Phases, each printed with its result and time:
      timed with CUDA events; then the radix-partition probe
      `microbench.radix_probe(28)`, whose JSON comes on a line of its own,
      with every radix kernel's launch count over it > 0, and the radix
-     sort's too (the probe's baseline sort; the bitonic sort's must be 0).
+     sort's too (the probe's baseline sort; the bitonic sort's must be 0);
+  7. the BWT at full width: on phase 3's text and SA `bwt(text, sa=...)`
+     against the numpy formulation, `bwt(text)` (which builds the SA
+     itself) the same, `unbwt` back to the text (compared on the device),
+     timed with CUDA events; at 2^24 and on the regression corpus
+     byte-exact against the oracle's BWT and inverse, both ways;
+  8. the partitioned index at full width: `PartitionedSuffixArray(text, 4)`
+     builds all four partitions in the sorts of ONE build; every
+     partition equal to the flat build of its chunk; phase 5's LCS needles
+     against the full index's answers; 64 exact searches, one a frequent
+     byte, against the full index's occurrences that cross no boundary,
+     with peak memory; P = 3 on 2^24 + 5 bytes and P = 7 on 5 bytes against
+     the host loop over the oracle;
+  9. the CLI in process on enwik-like 2^24 bytes: `run --verify`, `bench`,
+     `queries`, `crosscheck`, and `crosscheck --trace` on the GPU and on
+     the CPU, whose trace files must be byte-identical; `global` refused;
+ 10. the fuzzer on the card: 40 iterations over the engines, partitioned
+     and transforms targets, and every file of tests/corpus/; then the
+     inverse BWT's walk probe, `microbench.walk_probe(24)`.
+Phases 7 to 10 each zero the sort kernels' launch counts first and need
+the radix sort's > 0 and the bitonic sort's 0 afterwards.
 
 Every kernel's entry in the report carries `bound_ms`, the least time the
 card could take: the bytes the function must move (each input read once,
@@ -431,7 +451,8 @@ def phase5_queries(sa, text_np, sa_host) -> dict:
         check(sa_simplesearch(sa, c) == oracle.simplesearch(text_np, c, sa_host),
               f"simplesearch differs from the oracle on byte {c}")
     say("phase 5: 16 simplesearch chars equal to oracle.simplesearch")
-    return {"lcs_p50_s": lcs_p50, "search_p50_s": search_p50}
+    return ({"lcs_p50_s": lcs_p50, "search_p50_s": search_p50},
+            lcs_needles, [r.len for r in res])
 
 
 def phase1_build_kernels() -> None:
@@ -617,6 +638,315 @@ def phase6_radix() -> tuple[dict, int]:
     return report, sort_launches
 
 
+class SortLaunches:
+    """Zeroes both sort kernels' launch counts on entry; on exit requires
+    the radix sort's > 0 and the bitonic sort's 0 and keeps the former in
+    `counts[phase]`."""
+
+    def __init__(self, phase: str, counts: dict):
+        self.phase, self.counts = phase, counts
+
+    def __enter__(self):
+        from stringsearch_torch.ops import bitonic, radix_sort
+
+        radix_sort.launches = 0
+        bitonic.launches = 0
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        from stringsearch_torch.ops import bitonic, radix_sort
+
+        if exc_type is None:
+            self.counts[self.phase] = radix_sort.launches
+            say(f"{self.phase}: radix sort launches {radix_sort.launches}, "
+                f"bitonic launches {bitonic.launches}")
+            check(radix_sort.launches > 0,
+                  f"{self.phase} launched no radix sort")
+            check(bitonic.launches == 0,
+                  f"{self.phase} launched the bitonic kernel")
+
+
+def phase7_bwt(text_np, sa_host, card: str) -> dict:
+    import torch
+    from stringsearch_torch import oracle
+    from stringsearch_torch.harness.corpus import enwik_like, regression_corpus
+    from stringsearch_torch.ops.bitonic import device_sort
+    from stringsearch_torch.transforms.bwt import (
+        _jump, _lf_state, _unbwt_kernel, bwt, bwt_from_sa, divbwt, unbwt)
+
+    n = len(text_np)
+    text = torch.from_numpy(text_np.copy()).to("cuda")
+    sa = torch.from_numpy(sa_host).to("cuda")
+
+    # the numpy formulation: T[SA - 1] with row pidx skipped, U[0] = T[n-1]
+    want_pidx = int(np.flatnonzero(sa_host == 0)[0])
+    prev = text_np[sa_host - 1]  # row pidx wraps to T[n-1]: skipped
+    want_u = np.concatenate([text_np[-1:], prev[:want_pidx],
+                             prev[want_pidx + 1:]])
+    del prev
+    u, pidx = bwt(text, sa=sa)
+    check(pidx == want_pidx, f"bwt pidx {pidx}, numpy {want_pidx}")
+    check(np.array_equal(u.cpu().numpy(), want_u),
+          "bwt(text, sa) differs from the numpy formulation")
+    del want_u
+    from_sa_ms = cuda_ms(lambda: bwt_from_sa(text, sa), 3)
+    del sa
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u2, pidx2 = bwt(text)  # the `_divbwt_fused` branch: builds the SA
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    check(pidx2 == pidx and torch.equal(u2, u),
+          "bwt(text) differs from bwt(text, sa)")
+    del u2
+    say(f"phase 7: n=2^{LOG2N}: bwt equal to the numpy formulation, pidx "
+        f"{pidx}; bwt_from_sa {from_sa_ms:.3f} ms; bwt(text) with its build "
+        f"{fused_s:.4f} s [{card}]")
+
+    rounds = n.bit_length()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    back = _unbwt_kernel(u, pidx, rounds)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(back, text), "unbwt(bwt(text)) is not the text")
+    del back
+    unbwt_ms = cuda_ms(lambda: _unbwt_kernel(u, pidx, rounds), 1)
+    # its parts: the LF sort, and a round on the real LF state
+    r = torch.arange(n + 1, dtype=torch.int32, device="cuda")
+    col = torch.cat([u.to(torch.int32), r.new_zeros((1,))])
+    sort_ms = cuda_ms(lambda: device_sort((col, r), 1), 2)
+    del col, r
+    state, chars = _lf_state(u, pidx)
+    del chars
+    round_ms = cuda_ms(lambda: _jump(state), 5)
+    del state
+    say(f"phase 7: n=2^{LOG2N}: unbwt back to the text (compared on the "
+        f"device); _unbwt_kernel {unbwt_ms:.3f} ms in {rounds} rounds, one "
+        f"round {round_ms:.3f} ms, the LF sort {sort_ms:.3f} ms, peak CUDA "
+        f"memory {peak} B of which {held} B held before [{card}]")
+    del u, text
+    torch.cuda.empty_cache()
+
+    cases = {"enwik_like(2^24)": enwik_like(1 << 24), "n=0": b"", "n=1": b"q"}
+    cases.update({f"corpus:{k}": v for k, v in regression_corpus().items()})
+    for name, data in cases.items():
+        got_u, got_p = divbwt(data, device="cuda")
+        want = oracle.bwt(data)
+        check((got_u, got_p) == want, f"bwt differs from oracle.bwt on {name}")
+        check(unbwt(got_u, got_p, device="cuda") == data,
+              f"unbwt(bwt(x)) != x on {name}")
+        check(oracle.unbwt(got_u, got_p) == data,
+              f"oracle.unbwt(bwt(x)) != x on {name}")
+    say(f"phase 7: all {len(cases)} inputs byte-exact against oracle.bwt and "
+        f"oracle.unbwt, both ways")
+    return {"n": n, "bwt_from_sa_ms": from_sa_ms, "bwt_with_build_s": fused_s,
+            "unbwt_ms": unbwt_ms, "rounds": rounds, "round_ms": round_ms,
+            "lf_sort_ms": sort_ms, "peak_bytes": peak, "held_bytes": held}
+
+
+def phase8_partitioned(text_np, sa_host, lcs_needles, full_lens,
+                       card: str) -> dict:
+    import torch
+    import stringsearch_torch as st
+    from stringsearch_torch.core.search import sa_search_batch, sa_simplesearch
+    from stringsearch_torch.harness.corpus import enwik_like
+    from stringsearch_torch.ops import radix_sort
+
+    n = len(text_np)
+    parts = 4
+    text = torch.from_numpy(text_np.copy()).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    radix_sort.launches = 0
+    t0 = time.perf_counter()
+    index = st.PartitionedSuffixArray(text, parts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = radix_sort.launches
+    build_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    again = st.PartitionedSuffixArray(text, parts)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    check(torch.equal(index.sas, again.sas), "two partitioned builds disagree")
+    del again
+    say(f"phase 8: PartitionedSuffixArray(2^{LOG2N}, {parts}): build "
+        f"{build_s:.4f} s, second build {rebuild_s:.4f} s "
+        f"({n / rebuild_s:.1f} B/s), radix sort launches {launches}, peak "
+        f"CUDA memory {build_peak} B [{card}]")
+    # the sorts of one build: the initial sort, an invert and a round
+    check(launches == 3, f"the partitioned build launched {launches} radix "
+                         f"sorts, a flat build 3")
+    psize = index.partition_size
+    for p in range(parts):
+        flat = st.build_suffix_array(index.chunks[p]).sa
+        check(torch.equal(index.sas[p], flat),
+              f"partition {p} differs from the flat build of its chunk")
+        del flat
+    say("phase 8: every partition equal to the flat build of its chunk")
+
+    # LCS: fuzz._check_partitioned's three invariants against phase 5
+    res = index.longest_substring_match_batch(lcs_needles)
+    lcs_p50 = _p50(lambda: index.longest_substring_match_batch(lcs_needles), 5)
+    full = st.SuffixArray(text, torch.from_numpy(sa_host).to("cuda"))
+    shorter = 0
+    for nd, r, want_len in zip(lcs_needles, res, full_lens):
+        check(r.as_bytes() == nd[: r.len], "partitioned match bytes wrong")
+        check(r.len <= want_len, "partitioned match longer than the full "
+                                 "index's")
+        if r.len < want_len:
+            # allowed only if every optimal occurrence crosses a boundary
+            shorter += 1
+            count, lo = sa_search_batch(full, [nd[:want_len]])[0]
+            occ = full.sa[lo : lo + count]
+            inside = (occ // psize) == ((occ + (want_len - 1)) // psize)
+            check(not bool(inside.any()),
+                  "partitioned match shorter though an optimal occurrence "
+                  "lies inside one partition")
+    say(f"phase 8: {len(res)} partitioned LCS answers obey the three "
+        f"invariants against the full index ({shorter} shorter, every "
+        f"optimal occurrence of theirs across a boundary); p50 batch "
+        f"{lcs_p50 * 1e3:.3f} ms [{card}]")
+
+    rng = np.random.default_rng(8)
+    exact = [b"e"]
+    while len(exact) < 64:
+        m = int(rng.integers(2, 24))
+        s0 = int(rng.integers(0, n - m))
+        exact.append(text_np[s0 : s0 + m].tobytes() if len(exact) % 4
+                     else rng.integers(0, 256, m, dtype=np.uint8).tobytes())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    got = index.sa_search_batch(exact)
+    search_peak = torch.cuda.max_memory_allocated()
+    search_p50 = _p50(lambda: index.sa_search_batch(exact), 5)
+    for nd, (count, first), (fcount, lo) in zip(
+            exact, got, sa_search_batch(full, exact)):
+        occ = full.sa[lo : lo + fcount]
+        occ = occ[(occ // psize) == ((occ + (len(nd) - 1)) // psize)]
+        want = (int(occ.numel()),
+                int(occ.min()) if occ.numel() else -1)
+        check((count, first) == want,
+              f"partitioned sa_search {(count, first)} against the full "
+              f"index's in-partition occurrences {want} on {nd!r}")
+    c = int(exact[0][0])
+    check(index.sa_simplesearch(c)[0] == sa_simplesearch(full, c)[0],
+          "partitioned sa_simplesearch count differs from the full index's")
+    say(f"phase 8: 64 partitioned exact searches equal to the full index's "
+        f"in-partition occurrences and least position ({got[0][0]} of "
+        f"{exact[0]!r}, {sum(g[0] > 0 for g in got)} found), p50 batch "
+        f"{search_p50 * 1e3:.3f} ms; peak CUDA memory {search_peak} B of which "
+        f"{held} B held before; sa_simplesearch equal [{card}]")
+
+    # 256 needles, never B * P * L elements: under the build's own peak
+    many = lcs_needles[:255] + [b"e"]
+    torch.cuda.reset_peak_memory_stats()
+    index.sa_search_batch(many)
+    many_peak = torch.cuda.max_memory_allocated()
+    say(f"phase 8: 256 exact searches: peak CUDA memory {many_peak} B, the "
+        f"build's {build_peak} B")
+    check(many_peak < build_peak, "a partitioned search took more memory "
+                                  "than the build")
+    del index, full, text
+    torch.cuda.empty_cache()
+
+    for name, data, p in (("enwik_like(2^24 + 5)", enwik_like((1 << 24) + 5), 3),
+                          ("5 bytes", b"abcab", 7)):
+        batched = st.PartitionedSuffixArray(data, p)
+        looped = st.PartitionedSuffixArray(data, p, engine="oracle")
+        check(torch.equal(batched.sas, looped.sas),
+              f"P={p} on {name}: the batched build differs from the host "
+              f"loop over the oracle")
+        say(f"phase 8: P={p} on {name} (partitions of "
+            f"{batched.partition_size}): equal to the host loop over the "
+            f"oracle")
+    return {"n": n, "partitions": parts, "build_s": build_s,
+            "rebuild_s": rebuild_s, "launches": launches,
+            "peak_bytes": build_peak, "lcs_p50_s": lcs_p50,
+            "search_p50_s": search_p50, "search_peak_bytes": search_peak,
+            "search_256_peak_bytes": many_peak}
+
+
+def phase9_cli() -> None:
+    import tempfile
+    from stringsearch_torch.harness.cli import main as cli
+    from stringsearch_torch.harness.corpus import enwik_like
+
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "enwik24.bin")
+        with open(path, "wb") as f:
+            f.write(enwik_like(1 << 24))
+        try:
+            for argv in (["run", path, "--verify"],
+                         ["bench", path, "--engines", "doubling,oracle"],
+                         ["queries", path, "--batch", "64,256", "--reps", "5"],
+                         ["crosscheck", path]):
+                os.chdir(tmp)
+                say(f"phase 9: $ cli {' '.join(argv[:1] + argv[2:])}")
+                rc = cli(argv)
+                check(rc == 0, f"cli {argv[0]} returned {rc}")
+            traces = {}
+            for where, device in (("gpu", []), ("cpu", ["--device", "cpu"])):
+                work = os.path.join(tmp, where)
+                os.mkdir(work)
+                os.chdir(work)
+                argv = ["crosscheck", path, "64k", "--trace", *device]
+                say(f"phase 9: $ cli {' '.join(argv[:1] + argv[2:])}")
+                rc = cli(argv)
+                check(rc == 0, f"cli crosscheck --trace returned {rc}")
+                with open("crosscheck/doubling", "rb") as f:
+                    traces[where] = f.read()
+                with open("crosscheck/oracle", "rb") as f:
+                    tail = f.read().split(b":: SA final")[-1]
+                check(traces[where].split(b":: SA final")[-1] == tail,
+                      f"the {where} trace does not end in the oracle's SA")
+            check(traces["gpu"] == traces["cpu"],
+                  "the GPU trace differs from the CPU trace")
+            say(f"phase 9: the GPU and CPU traces are byte-identical "
+                f"({len(traces['gpu'])} B, "
+                f"{traces['gpu'].count(b':: round -> h=')} rounds) and end in "
+                f"the oracle's SA")
+            os.chdir(tmp)
+            rc = cli(["crosscheck", path, "--engines", "global"])
+            check(rc != 0, "cli crosscheck --engines global was not refused")
+            say(f"phase 9: crosscheck --engines global refused, return {rc}")
+        finally:
+            os.chdir(home)
+
+
+def phase10_fuzz(card: str) -> dict:
+    from stringsearch_torch.harness import fuzz, microbench
+
+    iters = 40
+    t0 = time.perf_counter()
+    rc = fuzz.main(["--iters", str(iters), "--max-len", "2048", "--seed", "1",
+                    "--targets", "engines,partitioned,transforms"])
+    fuzz_s = time.perf_counter() - t0
+    check(rc == 0, f"the fuzzer returned {rc}")
+    say(f"phase 10: {iters} fuzz iterations clean in {fuzz_s:.2f} s, "
+        f"{iters / fuzz_s:.2f} iterations/s [{card}]")
+    corpus = os.path.join(REPO, "tests", "corpus")
+    names = sorted(os.listdir(corpus))
+    for name in names:
+        with open(os.path.join(corpus, name), "rb") as f:
+            err = fuzz._check(f.read(), ["doubling"], set(fuzz.TARGETS),
+                              "cuda")
+        check(err is None, f"tests/corpus/{name}: {err}")
+    say(f"phase 10: all {len(names)} files of tests/corpus/ clean")
+    walk = microbench.walk_probe(24)
+    say(f"phase 10: walk_probe(24) [{card}]:")
+    say(json.dumps(walk))
+    check(all(math.isfinite(v) and v > 0 for row in walk["walkers"].values()
+              for v in row.values()) and walk["t_pointer_jumping"] > 0,
+          "walk_probe times are not all finite and positive")
+    return {"iters": iters, "fuzz_s": fuzz_s}
+
+
 def main() -> int:
     # One card: the first that CUDA would use, and the only one torch sees.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -653,12 +983,31 @@ def main() -> int:
         phase4_exact()
         say(f"phase 4: passed in {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
-        queries = phase5_queries(sa, text_np, sa_host)
+        queries, lcs_needles, lcs_lens = phase5_queries(sa, text_np, sa_host)
         say(f"phase 5: passed in {time.perf_counter() - t0:.2f} s")
         del sa
         t0 = time.perf_counter()
         radix_report, probe_sort_launches = phase6_radix()
         say(f"phase 6: passed in {time.perf_counter() - t0:.2f} s")
+        phase_launches = {}
+        t0 = time.perf_counter()
+        with SortLaunches("phase 7", phase_launches):
+            bwt_report = phase7_bwt(text_np, sa_host, card)
+        say(f"phase 7: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        with SortLaunches("phase 8", phase_launches):
+            partitioned_report = phase8_partitioned(
+                text_np, sa_host, lcs_needles, lcs_lens, card)
+        say(f"phase 8: passed in {time.perf_counter() - t0:.2f} s")
+        del text_np, sa_host
+        t0 = time.perf_counter()
+        with SortLaunches("phase 9", phase_launches):
+            phase9_cli()
+        say(f"phase 9: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        with SortLaunches("phase 10", phase_launches):
+            fuzz_report = phase10_fuzz(card)
+        say(f"phase 10: passed in {time.perf_counter() - t0:.2f} s")
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1
@@ -714,7 +1063,9 @@ def main() -> int:
         sort_entry("radix_sort", "stringsearch_torch/ops/csrc/radix_sort.cu",
                    build["launches"], probe_launches=probe_sort_launches,
                    plain_radix_sort=sorts["radix_sort"]["plain_radix_sort"],
-                   build=build, queries=queries),
+                   build=build, queries=queries,
+                   phase_launches=phase_launches, bwt=bwt_report,
+                   partitioned=partitioned_report, fuzz=fuzz_report),
         sort_entry("bitonic_sort", "stringsearch_torch/ops/csrc/bitonic.cu",
                    build["bitonic_launches"]),
         *radix_kernels]}))

@@ -41,3 +41,8 @@ def build_suffix_array(text: BytesLike, engine: str = "doubling",
     """Build a SuffixArray with the named engine on `device` (host input
     goes to "cuda" unless told otherwise; a tensor stays on its device)."""
     return get_engine(engine)(text, device=device)
+
+
+# every engine name of the reference's registry, in its order; `get_engine`
+# raises NotImplementedError for those not ported yet
+ENGINES = ("doubling", "dc3", "bstar", "oracle")

@@ -30,6 +30,14 @@ What differs from the JAX package, and why:
     downstream depends on that order, nor on the sort's order inside ties:
     group membership, heads and counts are the same, and the final SA is
     unique.
+  * The reference builds the partitions of a partitioned index with
+    `jax.vmap(build_sa)`. Here the same functions build them all in the
+    same sorts: the text is `n / chunk` chunks of `chunk` bytes, each
+    sorted for itself. The initial sort is led by the chunk index, after
+    which the head-slot ranks keep chunks apart by themselves (chunk p
+    owns slots [p * chunk, (p + 1) * chunk)); every test for "past the
+    end" is a test against the END OF THE SUFFIX'S CHUNK. The flat build
+    is the case of one chunk (`chunk == n`), with the same sorts as ever.
 Indexes are int32 (n < 2^31); the int64 index mode is not ported yet.
 """
 
@@ -63,22 +71,36 @@ def _iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=_I32, device=device)
 
 
-def _pack4_keys(text: torch.Tensor, depth: int) -> tuple:
+def _chunk_len(n: int, chunk) -> int:
+    """The chunk length of a build over n bytes: `chunk`, or n itself (at
+    least 1) for the flat build."""
+    if chunk is None:
+        return max(n, 1)
+    if chunk < 1 or n % chunk:
+        raise ValueError(f"chunk={chunk} must be positive and divide n={n}")
+    return chunk
+
+
+def _pack4_keys(text: torch.Tensor, depth: int, chunk=None) -> tuple:
     """depth/4 int32 keys of four RAW text bytes each, zero-padded, biased.
 
     Key k of suffix i is bytes i+4k .. i+4k+3, big-endian, XOR 0x80000000:
-    as signed int32 it orders like the reference's uint32 key.
+    as signed int32 it orders like the reference's uint32 key. The zero
+    padding starts at the end of the suffix's chunk: no key reads across
+    a chunk's end.
     """
     n = text.shape[0]
-    t = torch.cat([text.to(_I32), text.new_zeros((depth,), dtype=_I32)])
+    chunk = _chunk_len(n, chunk)
+    rows = text.to(_I32).view(n // chunk, chunk)
+    t = torch.cat([rows, rows.new_zeros((rows.shape[0], depth))], 1)
     keys = []
     for k in range(depth // 4):
         o = 4 * k
         keys.append(
-            ((t[o : o + n] << 24)
-             | (t[o + 1 : o + 1 + n] << 16)
-             | (t[o + 2 : o + 2 + n] << 8)
-             | t[o + 3 : o + 3 + n]) ^ _BIAS
+            (((t[:, o : o + chunk] << 24)
+              | (t[:, o + 1 : o + 1 + chunk] << 16)
+              | (t[:, o + 2 : o + 2 + chunk] << 8)
+              | t[:, o + 3 : o + 3 + chunk]) ^ _BIAS).view(n)
         )
     return tuple(keys)
 
@@ -90,18 +112,23 @@ def _scatter_to_text_order(sa, rank_s):
     return rank
 
 
-def _shift_ranks(rank, h: int):
-    """rank_h[i] = rank[i+h], or the marker -(i+1) past the end.
+def _shift_ranks(rank, h: int, chunk=None):
+    """rank_h[i] = rank[i+h], or the marker -(i+1) past the end of i's
+    chunk, i counted from the chunk's start.
 
     The marker is negative (an ended suffix sorts before every continuing
     one) and strictly decreasing in i (two suffixes that both end within
-    the window split at once, shorter first). Shifts above n are clamped
-    to n, where every entry is a marker.
+    the window split at once, shorter first). Shifts above the chunk
+    length are clamped to it, where every entry is a marker.
     """
     n = rank.shape[0]
-    h_c = min(h, n)
-    tail = -(torch.arange(n - h_c, n, dtype=rank.dtype, device=rank.device) + 1)
-    return torch.cat([rank[h_c:], tail])
+    chunk = _chunk_len(n, chunk)
+    h_c = min(h, chunk)
+    tail = -(torch.arange(chunk - h_c, chunk, dtype=rank.dtype,
+                          device=rank.device) + 1)
+    rows = rank.view(n // chunk, chunk)
+    return torch.cat([rows[:, h_c:], tail.expand(rows.shape[0], h_c)],
+                     1).view(n)
 
 
 def _segment_heads(flag, j):
@@ -148,10 +175,18 @@ def _ranks_sorted_only(out):
     return sa_s, rank_s, tied.sum()
 
 
-def _initial_sorted(text, depth: int = 24):
-    """`depth`-byte initial sort. Returns (sa_s, rank_s, count_tied)."""
-    keys = _pack4_keys(text, depth)
-    j = _iota(text.shape[0], text.device)
+def _initial_sorted(text, depth: int = 24, chunk=None):
+    """`depth`-byte initial sort. Returns (sa_s, rank_s, count_tied).
+
+    With more than one chunk the chunk index leads the keys, so chunk p
+    comes out in slots [p * chunk, (p + 1) * chunk) and no group of tied
+    suffixes spans two chunks.
+    """
+    n = text.shape[0]
+    keys = _pack4_keys(text, depth, chunk)
+    j = _iota(n, text.device)
+    if _chunk_len(n, chunk) < n:
+        keys = (torch.div(j, chunk, rounding_mode="floor"),) + keys
     out = device_sort(keys + (j,), num_keys=len(keys))
     del keys, j
     return _ranks_sorted_only(out)
@@ -170,18 +205,22 @@ def _full_round(rank, h: int, fan: int = 2):
     return _scatter_to_text_order(sa_s, rank_s), sa_s, rank_s, count
 
 
-def _full_round_sorted(rank, h: int, fan: int = 2):
+def _full_round_sorted(rank, h: int, fan: int = 2, chunk=None):
     """One full-width round from TEXT-order ranks, without the trailing
     inverse permutation. Returns (sa_s, rank_s, count) in sorted order.
 
     The keys are (rank[i], rank[i+h], .., rank[i+(fan-1)h]), each a
     depth-h class, so one round multiplies the resolved depth by `fan`.
+    Ranks of different chunks never meet, so the first key keeps the
+    chunks apart.
     """
     n = rank.shape[0]
-    # k*h can overflow for huge n: cap h at n//k + 1 first, so the
-    # product is <= n + k and _shift_ranks clamps the rest
+    chunk = _chunk_len(n, chunk)
+    # k*h can overflow for huge n: cap h at chunk//k + 1 first, so the
+    # product is <= chunk + k and _shift_ranks clamps the rest
     keys = (rank,) + tuple(
-        _shift_ranks(rank, min(h, n // k + 1) * k) for k in range(1, fan)
+        _shift_ranks(rank, min(h, chunk // k + 1) * k, chunk)
+        for k in range(1, fan)
     )
     out = device_sort(keys + (_iota(n, rank.device),), num_keys=fan)
     del keys
@@ -211,7 +250,7 @@ def _extract(rank_s, sa_s, m: int, method: str = "topk"):
     return g, pos
 
 
-def _compact_round(g, pos, rank, sa, h: int, fan: int = 2):
+def _compact_round(g, pos, rank, sa, h: int, fan: int = 2, chunk=None):
     """One compacted round over the tied groups only.
 
     g/pos: [m] group-head ranks + positions (pads g=INT32_MAX, pos=n).
@@ -222,16 +261,21 @@ def _compact_round(g, pos, rank, sa, h: int, fan: int = 2):
     fan*h; every rank in the full array has depth >= h.
     """
     n = rank.shape[0] - 1
+    chunk = _chunk_len(n, chunk)
     m = g.shape[0]
     dev = g.device
     j = _iota(m, dev)
+    # a pad's pos is n, which looks like the first byte of a chunk: pads
+    # are past the end whatever the shift
+    local = pos % chunk
+    pad = g == _SENT
     shift_keys = []
     for k in range(1, fan):
         # overflow guard as in _full_round_sorted; the past-end test is
-        # written as pos >= n - s_k, and the sum pos + s_k is only used
-        # where that test failed, so it stays < n
-        s_k = min(h, n // k + 1) * k
-        past = pos >= n - s_k
+        # written as local >= chunk - s_k, and the sum pos + s_k is only
+        # used where that test failed, so it stays inside pos's chunk
+        s_k = min(h, chunk // k + 1) * k
+        past = (local >= chunk - s_k) | pad
         ph = torch.where(past, 0, pos + s_k)
         # past-the-end marker -(pos+1), as in _shift_ranks
         shift_keys.append(torch.where(past, -(pos + 1), rank[ph]))
@@ -266,13 +310,13 @@ def _shrink(g, pos, m2: int):
     return g2[:m2], p2[:m2]
 
 
-def _next_h(h: int, n: int, fan: int) -> int:
-    return min(min(h, n // fan + 1) * fan, n)
+def _next_h(h: int, chunk: int, fan: int) -> int:
+    return min(min(h, chunk // fan + 1) * fan, chunk)
 
 
 def _refine(sa_s0, rank_s0, count0, h0: int, levels, fan: int,
             extract: str = "auto", adaptive: bool = True,
-            want_isa: bool = True):
+            want_isa: bool = True, chunk=None):
     """Doubling rounds + cascaded compaction from a sorted initial state.
 
     Returns (sa, isa), or (sa, sa) when `want_isa` is False and the build
@@ -284,21 +328,22 @@ def _refine(sa_s0, rank_s0, count0, h0: int, levels, fan: int,
     holds the live tied count.
     """
     n = sa_s0.shape[0]
+    chunk = _chunk_len(n, chunk)
     caps = [max(min(n, max(n // d, 64)), 1) for d in levels]
     # non-increasing capacities after the 64-floor clamps
     for i in range(1, len(caps)):
         caps[i] = min(caps[i], caps[i - 1])
 
     sa_s, rank_s, h, count = sa_s0, rank_s0, h0, int(count0)
-    # no `h < n` guard: short suffixes may need the h == n marker round to
-    # split, and that round always zeroes the count
+    # no `h < chunk` guard: short suffixes may need the h == chunk marker
+    # round to split, and that round always zeroes the count
     while count > caps[0]:
         rank = _scatter_to_text_order(sa_s, rank_s)  # predecessor's invert
         del sa_s, rank_s
-        sa_s, rank_s, count_t = _full_round_sorted(rank, h, fan)
+        sa_s, rank_s, count_t = _full_round_sorted(rank, h, fan, chunk)
         del rank
         count = int(count_t)
-        h = _next_h(h, n, fan)
+        h = _next_h(h, chunk, fan)
 
     if count == 0:
         if want_isa:
@@ -323,9 +368,9 @@ def _refine(sa_s0, rank_s0, count0, h0: int, levels, fan: int,
     def run_until(limit, g, pos, h, count):
         while count > limit:
             g, pos, _, _, count_t = _compact_round(g, pos, rank_buf, sa_buf,
-                                                   h, fan)
+                                                   h, fan, chunk)
             count = int(count_t)
-            h = _next_h(h, n, fan)
+            h = _next_h(h, chunk, fan)
         return g, pos, h, count
 
     for nxt in caps[level + 1:]:
@@ -343,32 +388,77 @@ def _prepare(text, idx, depth: int, fan: int, device):
 def build_with_isa(text, idx=_I32, depth: int = 24,
                    levels: tuple = (4, 16, 64, 512), fan: int = 4,
                    extract: str = "auto", adaptive: bool = True,
-                   device=None):
+                   device=None, chunk=None):
     """SA construction that also returns the ISA. Returns (sa, isa), int32
     tensors [n] on the text's device.
 
     A `depth`-byte initial sort, full rounds while more than n/levels[0]
     positions stay tied, then a cascade of compaction levels with
-    capacities n/levels[i]. n must be >= 3 (`sort` handles shorter text).
+    capacities n/levels[i].
+
+    `chunk` (a divisor of n) sorts every `chunk` bytes of the text for
+    themselves, all in the same sorts: slots [p * chunk, (p + 1) * chunk)
+    of `sa` hold the suffix array of chunk p as positions in the whole
+    text, and `isa` is its inverse. A sort takes at most six planes, which
+    bounds `depth` at 16 bytes where there is more than one chunk.
     """
     text = _prepare(text, idx, depth, fan, device)
-    sa_s0, rank_s0, count0 = _initial_sorted(text, depth)
-    h0 = min(depth, text.shape[0])
+    sa_s0, rank_s0, count0 = _initial_sorted(text, depth, chunk)
+    h0 = min(depth, _chunk_len(text.shape[0], chunk))
     return _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
-                   adaptive, want_isa=True)
+                   adaptive, want_isa=True, chunk=chunk)
 
 
 def build_sa(text, idx=_I32, depth: int = 24,
              levels: tuple = (4, 16, 64, 512), fan: int = 4,
-             extract: str = "auto", adaptive: bool = True, device=None):
+             extract: str = "auto", adaptive: bool = True, device=None,
+             chunk=None):
     """`build_with_isa` without the ISA: skips the final inverse-permutation
-    sort when the build resolves in the full rounds. `sort()` uses this."""
+    sort when the build resolves in the full rounds. `sort()` and the
+    partitioned index (with `chunk`) use this."""
     text = _prepare(text, idx, depth, fan, device)
-    sa_s0, rank_s0, count0 = _initial_sorted(text, depth)
-    h0 = min(depth, text.shape[0])
+    sa_s0, rank_s0, count0 = _initial_sorted(text, depth, chunk)
+    h0 = min(depth, _chunk_len(text.shape[0], chunk))
     sa, _ = _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
-                    adaptive, want_isa=False)
+                    adaptive, want_isa=False, chunk=chunk)
     return sa
+
+
+_TRACE_DEPTH = 8  # a shallow initial sort, so traces show the rounds
+
+
+def sort_traced(text, tracer, device=None) -> SuffixArray:
+    """Traced build: host-stepped fan-2 rounds with a dump after each.
+
+    Counterpart of the reference's `sort_traced`, with the same labels
+    and dumps, so the two traces of one input are byte-identical: the
+    ranks are head-slot ranks, and the sorted order between rounds holds
+    ties in position order (every sort is stable, the position its
+    payload). The fast path (`sort`) carries no tracing code.
+    """
+    arr = as_text_tensor(text, device)
+    n = int(arr.shape[0])
+    tracer.log(f"doubling engine n={n}")
+    if n < 3:
+        sa = sort(arr)
+        tracer.dump("SA final", sa.sa)
+        tracer.flush()
+        return sa
+    rank, sa, _rank_s, count = _initial_full(arr, depth=_TRACE_DEPTH)
+    done = int(count) == 0
+    tracer.dump(f"rank h={_TRACE_DEPTH} ({_TRACE_DEPTH}-byte radix)", rank)
+    tracer.dump(f"SA h={_TRACE_DEPTH}", sa)
+    h = _TRACE_DEPTH
+    while not done and h < n:
+        rank, sa, _rank_s, count = _full_round(rank, h)
+        done = int(count) == 0
+        h *= 2
+        tracer.log(f"round -> h={h} done={done}")
+        tracer.dump(f"rank h={h}", rank)
+        tracer.dump(f"SA h={h}", sa)
+    tracer.dump("SA final", sa)
+    tracer.flush()
+    return SuffixArray(arr, sa)
 
 
 def sort_in_place(text, sa_out: np.ndarray, device=None) -> None:

@@ -6,12 +6,15 @@ and options:
     python -m stringsearch_torch.harness.microbench ops --n 24
     python -m stringsearch_torch.harness.microbench phases --n 24
     python -m stringsearch_torch.harness.microbench radix --n 28
+    python -m stringsearch_torch.harness.microbench walk --n 24
 
 plus `tiedcurve`, `extract`, `bucketed` and `sweep`. Each mode runs on
 `--device` (default "cuda"; "cpu" runs the plain PyTorch versions, for a
 smoke test only: its times are the host's) and names that device in its
 JSON. Every time is the median host wall of `reps` runs after one warm-up,
-each ending in `torch.cuda.synchronize()`.
+each ending in `torch.cuda.synchronize()`; the `walk` mode's loops of
+2048 launches are timed as a whole (CUDA events on the GPU), one
+synchronisation at the end.
 
 How the reference's ops map here: a 1-D `lax.sort` is `device_sort` (the
 Hopper radix sort on CUDA), as in the engine; a batched sort along
@@ -22,8 +25,6 @@ seven int32 planes and a float32 key; they run on the plain chained
 `torch.sort` (`plain_sort`) under the reference's names with `_plain`
 appended: `sort_6key_7op_plain`, `sort_1key_2op_f32_bitcast_plain`.
 Not ported:
-  * the `walk` mode: it times `transforms/bwt.py`'s `_unbwt_kernel`, which
-    waits for the BWT port (ROADMAP.md §1 item 2); `main` rejects it;
   * the op table's `sort_1key_2op_i64` row, which exists only under JAX's
     `jax_enable_x64`;
   * the persistent XLA compilation cache, which serves only XLA.
@@ -45,9 +46,6 @@ from stringsearch_torch.ops import radix
 from stringsearch_torch.ops.bitonic import device_sort, plain_sort
 
 _I32 = torch.int32
-WALK_REJECTED = ("walk is not ported: it times transforms/bwt.py's "
-                 "_unbwt_kernel, which waits for the BWT port "
-                 "(ROADMAP.md §1 item 2)")
 
 
 def _sync() -> None:
@@ -434,6 +432,117 @@ def radix_probe(log_n: int, reps: int = 3, device="cuda") -> dict:
     return out
 
 
+def _loop_seconds(fn, device, reps: int) -> float:
+    """Median time of fn(), a loop of many launches, after one warm-up:
+    CUDA events around the whole loop on the GPU, the host clock
+    elsewhere; one synchronisation at the end either way."""
+    if torch.device(device).type != "cuda":
+        return _timeit(fn, reps=reps)
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return float(np.median(times))
+
+
+def walk_probe(log_n: int, reps: int = 3, device="cuda") -> dict:
+    """Blocked-cycle-walk feasibility probe for the inverse BWT.
+
+    The shipped unbwt is pointer jumping: bit_length(n) rounds of one
+    full-width row gather (transforms/bwt.py). The alternative is B
+    lockstep walkers doing about n/B TINY (B-index) gathers: phase 1 walks
+    marker to marker to stitch orbit offsets, phase 2 walks again emitting
+    bytes with a B-index scatter a step. Whether that wins is decided by
+    the cost of one step, measured here over 2048 steps.
+
+    A step is one launch (two with the scatter) from a host loop, the
+    whole loop timed at once: PyTorch has no compiled loop to put the
+    steps in, so `us_per_step_*` is the cost of a launch as much as of a
+    B-index gather, by construction.
+
+    Reports microseconds a step and the extrapolated two-phase unbwt
+    estimate at the expected longest interval, about (n/B)(ln B + 2)
+    lockstep steps (random marker spacing on the cycle), beside the cost
+    of pointer jumping (`t_pointer_jumping`, the whole `_unbwt_kernel` on
+    random bytes) and of one of its rounds alone in three formulations
+    (`t_jump_round`).
+    """
+    from stringsearch_torch.transforms.bwt import _jump, _unbwt_kernel
+
+    n = 1 << log_n
+    perm = torch.randperm(n, device=device,
+                          generator=_generator(device, 0)).to(_I32)
+    steps = 2048
+    out = {"n": n, "steps_measured": steps, "device": _device_name(device)}
+
+    results = {}
+    for b in (1024, 4096, 16384):
+        start = torch.randint(0, n, (b,), dtype=_I32, device=device,
+                              generator=_generator(device, b))
+
+        def walk_g():
+            cur = start
+            for _ in range(steps):
+                cur = perm[cur]
+            return cur
+
+        def walk_gs():
+            cur = start
+            acc = torch.zeros((n,), dtype=_I32, device=device)
+            for t in range(steps):
+                acc[cur] = t
+                cur = perm[cur]
+            return cur, acc
+
+        per_g = _loop_seconds(walk_g, device, reps) / steps * 1e6
+        per_gs = _loop_seconds(walk_gs, device, reps) / steps * 1e6
+        # two-phase estimate: lockstep to the expected longest interval
+        # between markers; phase 1 gathers only, phase 2 gathers and
+        # scatters
+        maxlen = (n / b) * (math.log(b) + 2)
+        results[b] = {
+            "us_per_step_gather": per_g,
+            "us_per_step_gather_scatter": per_gs,
+            "est_two_phase_s": maxlen * (per_g + per_gs) / 1e6,
+        }
+    out["walkers"] = results
+
+    # the incumbent at this size, for the same table
+    u = torch.randint(0, 256, (n,), dtype=torch.uint8, device=device,
+                      generator=_generator(device, 9))
+    rounds = max(1, n.bit_length())
+    out["rounds"] = rounds
+    out["t_pointer_jumping"] = _timeit(
+        lambda a: _unbwt_kernel(a, 0, rounds), u, reps=reps)
+    # one round alone, on a state whose pointers are a random permutation
+    state = torch.stack([
+        torch.cat([perm, perm.new_zeros((1,))]),
+        torch.ones((n + 1,), dtype=_I32, device=device)], 1)
+    nxt, dist = state[:, 0].contiguous(), state[:, 1].contiguous()
+
+    def advanced_index(st):
+        g = st[st[:, 0]]
+        return torch.stack([g[:, 0], st[:, 1] + g[:, 1]], 1)
+
+    # the round as shipped (one 8-byte `index_select` by an int32 index),
+    # as the reference writes it (a row gather by advanced indexing), and
+    # as two planes (two 4-byte gathers)
+    out["t_jump_round"] = {
+        "row8_index_select_int32": _timeit(_jump, state, reps=reps),
+        "rows_advanced_index": _timeit(advanced_index, state, reps=reps),
+        "two_planes": _timeit(lambda a, d: (a[a], d + d[a]), nxt, dist,
+                              reps=reps),
+    }
+    return out
+
+
 def config_sweep(log_n: int, reps: int = 2, configs=None,
                  device="cuda") -> dict:
     """End-to-end build wall time across configurations.
@@ -491,8 +600,6 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda",
                    help='torch device (default "cuda"; "cpu" for a smoke run)')
     args = p.parse_args(argv)
-    if args.mode == "walk":
-        p.error(WALK_REJECTED)
     dev = args.device
     dkw = {} if args.depth is None else {"depth": args.depth}
     fan = max(args.fan, 2)
@@ -515,6 +622,8 @@ def main(argv=None) -> None:
         print(json.dumps(bucketed_initial(args.n, args.reps, dev)))
     elif args.mode == "radix":
         print(json.dumps(radix_probe(args.n, args.reps, dev)))
+    elif args.mode == "walk":
+        print(json.dumps(walk_probe(args.n, args.reps, dev)))
     elif args.mode == "sweep":
         cfgs = None
         if args.configs:

@@ -16,7 +16,14 @@ chained `torch.sort` in its place, and prints for each:
     device's idle share, 1 - summed kernel time / median unprofiled wall.
 Then, on each of the three sorts, the build walls of the small and
 adversarial inputs that `chip_smoke.py` holds against the oracle, whose
-cost is many small sorts. Needs a CUDA device.
+cost is many small sorts. Last, at 2^28 on the radix sort, the same sort
+times and kernel sums for what is built on the flat build: the partitioned
+build (four partitions in one build), `bwt_from_sa` and `_unbwt_kernel`.
+Needs a CUDA device.
+
+    python -m stringsearch_torch.harness.profile_build transforms
+
+runs that last part alone.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 import re
 import statistics
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
@@ -64,42 +72,63 @@ def _short(name: str) -> str:
     return re.sub(r"\((?!\().*$", "", name).strip()[:72]
 
 
-def profile(text, sort, label: str) -> None:
-    n = text.shape[0]
-    doubling.device_sort = sort
+def _kernel_sums(fn) -> dict:
+    """Device time of each kernel of fn(), summed by name, from
+    `torch.profiler`: {name: [ms, launches]}."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            per[_short(e.name)][0] += e.time_range.elapsed_us() / 1e3
+            per[_short(e.name)][1] += 1
+    return per
+
+
+def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
+            nbytes: int = 0) -> None:
+    """Three walls of fn() after a warm-up and its peak memory; the
+    CUDA-event time of each sort it makes; its kernels summed by name and
+    the device's idle share. `sort` takes the place of `device_sort` in
+    `modules` meanwhile."""
+    def route(fn_sort):
+        for module in modules:
+            module.device_sort = fn_sort
+
+    def run():
+        fn()
+        torch.cuda.synchronize()
+
+    route(sort)
     try:
-        _one_build(text)
+        run()
         torch.cuda.reset_peak_memory_stats()
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
-            _one_build(text)
+            run()
             walls.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
         wall = statistics.median(walls)
-        print(f"2^{n.bit_length() - 1} {label}: build wall "
-              f"{', '.join(f'{w:.4f}' for w in walls)} s (median {wall:.4f} s, "
-              f"{n / wall:.1f} B/s), peak CUDA memory {peak} B", flush=True)
+        rate = f", {nbytes / wall:.1f} B/s" if nbytes else ""
+        print(f"{label}: wall {', '.join(f'{w:.4f}' for w in walls)} s "
+              f"(median {wall:.4f} s{rate}), peak CUDA memory {peak} B",
+              flush=True)
 
         log = []
-        doubling.device_sort = _timed(sort, log)
-        _one_build(text)
+        route(_timed(sort, log))
+        run()
+        route(sort)
         sorts = 0.0
         for c, nk, start, end in log:
             ms = start.elapsed_time(end)
             sorts += ms
             print(f"   sort C={c} keys={nk}: {ms:.3f} ms")
-        doubling.device_sort = sort
 
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-            _one_build(text)
-        per = defaultdict(lambda: [0.0, 0])
-        for e in prof.events():
-            if str(e.device_type).endswith("CUDA"):
-                per[_short(e.name)][0] += e.time_range.elapsed_us() / 1e3
-                per[_short(e.name)][1] += 1
+        per = _kernel_sums(run)
         busy = sum(ms for ms, _ in per.values())
         if not per:
             print("   profiler: no device events recorded (idle share not "
@@ -113,7 +142,31 @@ def profile(text, sort, label: str) -> None:
             if ms >= 0.01 * busy:
                 print(f"   {ms:10.3f} ms x {count:3d}  {name}")
     finally:
-        doubling.device_sort = bitonic.device_sort
+        route(bitonic.device_sort)
+
+
+def profile_transforms(log2n: int = 28) -> None:
+    """What is built on the flat build, at 2^log2n on the radix sort: the
+    partitioned build (four partitions in one build) and the two BWT
+    functions."""
+    import importlib
+
+    from stringsearch_torch.parallel.partitioned import build_partitioned
+
+    # the package's attribute `bwt` is the function, not the module
+    bwt = importlib.import_module("stringsearch_torch.transforms.bwt")
+    n = 1 << log2n
+    text = torch.from_numpy(
+        np.frombuffer(enwik_like(n), dtype=np.uint8).copy()).to("cuda")
+    profile(f"2^{log2n} partitioned build, 4 partitions",
+            lambda: build_partitioned(text, 4), nbytes=n)
+    sa = _one_build(text).sa
+    profile(f"2^{log2n} bwt_from_sa", lambda: bwt.bwt_from_sa(text, sa))
+    u, pidx = bwt.bwt_from_sa(text, sa)
+    del sa
+    rounds = n.bit_length()
+    profile(f"2^{log2n} _unbwt_kernel, {rounds} rounds",
+            lambda: bwt._unbwt_kernel(u, pidx, rounds), modules=(bwt,))
 
 
 def compaction_walls() -> None:
@@ -168,17 +221,24 @@ def main() -> None:
         capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     radix_sort.load_library()
+    if sys.argv[1:] == ["transforms"]:
+        profile_transforms()
+        return
     bitonic.load_library()
     for log2n in SIZES:
         text = torch.from_numpy(
             np.frombuffer(enwik_like(1 << log2n), dtype=np.uint8).copy()
         ).to("cuda")
-        profile(text, bitonic.device_sort, "radix kernel")
-        profile(text, bitonic.bitonic_sort, "bitonic kernel")
-        profile(text, bitonic.plain_sort, "plain")
+        for label, sort in (("radix kernel", bitonic.device_sort),
+                            ("bitonic kernel", bitonic.bitonic_sort),
+                            ("plain", bitonic.plain_sort)):
+            profile(f"2^{log2n} build, {label}",
+                    lambda text=text: _one_build(text), sort,
+                    nbytes=1 << log2n)
         del text
         torch.cuda.empty_cache()
     compaction_walls()
+    profile_transforms()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Trusted host C++ oracle: independent SA-IS build, checker and search.
+"""Trusted host C++ oracle: independent SA-IS build, checker, search and BWT.
 
 Counterpart of stringsearch_tpu/oracle. The port keeps its own copy of the
 C++ source (`csrc/saca.cpp`, byte-identical to the JAX package's, which a
@@ -47,6 +47,11 @@ def load() -> ctypes.CDLL:
         lib.saca_simplesearch.argtypes = [u8p, ctypes.c_int32, i32p,
                                           ctypes.c_int32, ctypes.c_int32, i32p]
         lib.saca_simplesearch.restype = ctypes.c_int64
+        lib.saca_bwt.argtypes = [u8p, u8p, ctypes.c_int32]
+        lib.saca_bwt.restype = ctypes.c_int32
+        lib.saca_unbwt.argtypes = [u8p, u8p, ctypes.c_int32, ctypes.c_int32]
+        lib.saca_unbwt.restype = ctypes.c_int32
+        lib.saca_version.restype = ctypes.c_char_p
         _lib = lib
         return lib
 
@@ -120,3 +125,33 @@ def simplesearch(data: BytesLike, c: int, sa) -> tuple[int, int]:
     if cnt < 0:
         raise RuntimeError(f"oracle saca_simplesearch failed: rc={cnt}")
     return int(cnt), int(idx[0])
+
+
+def bwt(data: BytesLike) -> tuple[bytes, int]:
+    """(BWT bytes, primary index) of `data`."""
+    t = _host_text(data)
+    n = len(t)
+    if n == 0:
+        return b"", 0
+    u = np.zeros(n, dtype=np.uint8)
+    pidx = load().saca_bwt(_u8p(t), _u8p(u), n)
+    if pidx < 0:
+        raise RuntimeError(f"oracle saca_bwt failed: rc={pidx}")
+    return u.tobytes(), int(pidx)
+
+
+def unbwt(data: BytesLike, pidx: int) -> bytes:
+    """Inverse BWT of `data` with primary index `pidx`."""
+    u = _host_text(data)
+    n = len(u)
+    if n == 0:
+        return b""
+    t = np.zeros(n, dtype=np.uint8)
+    rc = load().saca_unbwt(_u8p(u), _u8p(t), n, int(pidx))
+    if rc != 0:
+        raise RuntimeError(f"oracle saca_unbwt failed: rc={rc}")
+    return t.tobytes()
+
+
+def version() -> str:
+    return load().saca_version().decode()

@@ -270,3 +270,55 @@ def test_oracle_engine_and_device_placement():
     # a tensor stays on its own device when none is given
     t = torch.from_numpy(_u8(data).copy())
     assert tst.build_suffix_array(t).sa.device == t.device
+
+
+def _trace_inputs() -> dict:
+    rng = np.random.default_rng(55)
+    return {
+        "n0": b"", "n2": b"ba", "n3": b"aab",
+        "n1000": rng.integers(0, 4, 1000, dtype=np.uint8).tobytes(),
+        "periodic": b"abcab" * 200,  # needs several rounds
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_trace_inputs()))
+def test_sort_traced_trace_equals_jax(name, tmp_path):
+    """Every round's head-slot ranks and sorted order (ties in position
+    order), label for label: the two packages' traces are one text."""
+    from stringsearch_torch.harness.tracing import PER_LINE, Tracer
+    from stringsearch_tpu.harness import tracing as jtracing
+
+    data = _trace_inputs()[name]
+    with Tracer(str(tmp_path / "torch" / "doubling")) as tr:
+        sa = doubling.sort_traced(data, tr, device="cpu")
+    with jtracing.Tracer(str(tmp_path / "jax" / "doubling")) as jtr:
+        jsa = jdoubling.sort_traced(data, jtr)
+    got = (tmp_path / "torch" / "doubling").read_text()
+    assert got == (tmp_path / "jax" / "doubling").read_text()
+    np.testing.assert_array_equal(sa.sa.numpy(), np.asarray(jsa.sa))
+    np.testing.assert_array_equal(sa.sa.numpy(), oracle.build(data))
+    assert PER_LINE == jtracing.PER_LINE == 25
+    assert got.startswith(f":: doubling engine n={len(data)}\n")
+    if name == "periodic":
+        assert got.count(":: round -> h=") >= 3
+        assert "done=True" in got and "done=False" in got
+    if len(data) >= 3:
+        assert ":: rank h=8 (8-byte radix) len=" in got
+        lines = got.split(":: SA final")[-1].splitlines()[1:]
+        assert all(len(line.split()) == 25 for line in lines[:-1])
+
+
+def test_tracer_dumps_tensors_and_arrays_alike(tmp_path):
+    from stringsearch_torch.harness.tracing import Tracer
+
+    values = np.arange(-3, 60, dtype=np.int32)
+    with Tracer(str(tmp_path / "a")) as tr:
+        tr.log("x")
+        tr.dump("v", values)
+    with Tracer(str(tmp_path / "b")) as tr:
+        tr.log("x")
+        tr.dump("v", torch.from_numpy(values))
+    text = (tmp_path / "a").read_text()
+    assert text == (tmp_path / "b").read_text()
+    assert text.splitlines()[:2] == [":: x", ":: v len=63"]
+    assert len(text.splitlines()) == 2 + 3

@@ -57,11 +57,66 @@ def test_tied_curve_rounds_equal_jax(depth):
     assert len(got["rounds"]) > 1
 
 
-def test_main_rejects_walk(capsys):
+@pytest.fixture
+def one_thread():
+    """The walk probe is thousands of tiny indexing calls: on several
+    threads each call pays for waking them, many times over when other test
+    processes share the cores."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_main_rejects_walk(capsys, one_thread):
+    """`walk` was rejected until the BWT was ported. Now `main` runs it,
+    and still rejects a mode it does not have."""
+    microbench.main(["walk", "--n", "10", "--reps", "1", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["n"] == 1024 and out["device"] == "cpu"
+    assert not hasattr(microbench, "WALK_REJECTED")
     with pytest.raises(SystemExit) as e:
-        microbench.main(["walk"])
+        microbench.main(["stroll"])
     assert e.value.code == 2
-    assert "ROADMAP.md §1 item 2" in capsys.readouterr().err
+
+
+def test_walk_probe_keys_equal_jax(one_thread):
+    got = microbench.walk_probe(12, reps=1, device="cpu")
+    want = _jax_microbench().walk_probe(12, reps=1)
+    assert set(want) <= set(got)
+    assert got["n"] == want["n"] == 4096
+    assert got["steps_measured"] == want["steps_measured"] == 2048
+    assert got["rounds"] == 13
+    assert set(got["walkers"]) == set(want["walkers"]) == {1024, 4096, 16384}
+    for b, row in got["walkers"].items():
+        assert set(row) == set(want["walkers"][b])
+        assert all(v > 0 for v in row.values())
+    assert got["t_pointer_jumping"] > 0
+    assert set(got["t_jump_round"]) == {
+        "row8_index_select_int32", "rows_advanced_index", "two_planes"}
+
+
+def test_jump_round_formulations_agree():
+    """The shipped pointer-jumping round (one 8-byte `index_select`)
+    against the reference's formulation, a row gather of the [m, 2]
+    state."""
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from stringsearch_torch.transforms.bwt import _jump
+
+    rng = np.random.default_rng(12)
+    state = np.stack([rng.permutation(1001).astype(np.int32),
+                      rng.integers(0, 9, 1001, dtype=np.int32)], 1)
+    st = jnp.asarray(state)
+    g = jnp.take(st, st[:, 0], axis=0)
+    want = jnp.stack([g[:, 0], st[:, 1] + g[:, 1]], axis=1)
+    got = _jump(torch.from_numpy(state))
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.fixture

@@ -82,17 +82,64 @@ def test_oracle_wrapper_matches_jax_oracle():
 
 
 def test_port_never_imports_jax():
+    """Every module of the package, imported in a fresh interpreter, brings
+    in neither jax nor the JAX package."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import stringsearch_torch\n"
-        "import stringsearch_torch.engines.doubling\n"
-        "import stringsearch_torch.core.search, stringsearch_torch.core.verify\n"
-        "import stringsearch_torch.oracle, stringsearch_torch.harness.corpus\n"
-        "import stringsearch_torch.ops.bitonic\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    stringsearch_torch.__path__, 'stringsearch_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for need in ('harness.cli', 'harness.fuzz', 'harness.microbench',\n"
+        "             'ops.radix', 'ops.radix_sort', 'parallel.partitioned',\n"
+        "             'transforms.bwt', 'utils.sizes'):\n"
+        "    assert 'stringsearch_torch.' + need in names, need\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'stringsearch_tpu'))\n"
         "assert not bad, bad\n"
+        "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout) >= 27
+
+
+def _port_sources() -> list:
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, files in os.walk(os.path.join(REPO, "stringsearch_torch")):
+        # build outputs and byte code are no sources: never descend into them
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        paths += [os.path.join(root, f) for f in files
+                  if f.endswith((".py", ".cu", ".cpp", ".h"))]
+    return sorted(paths)
+
+
+def test_port_sources_name_the_jax_package_in_no_import_or_path():
+    """No file of the port imports jax or the JAX package, or builds a path
+    into it. Docstrings and comments name their counterparts there, in
+    prose: `stringsearch_tpu/...` after "Counterpart of" and the like."""
+    import re
+
+    imports = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|stringsearch_tpu)\b", re.M)
+    # the package's name inside a string that code could use as a path or a
+    # module name: a quoted literal that starts with it
+    literal = re.compile(r"""["'](\.{0,2}/)?stringsearch_tpu[/."']""")
+    sources = _port_sources()
+    assert len(sources) >= 33
+    for path in sources:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        where = os.path.relpath(path, REPO)
+        assert not imports.search(text), where
+        if where == "chip_smoke.py":
+            # its report names each TPU kernel it replaces, as file:line
+            text = re.sub(r"stringsearch_tpu/ops/(bitonic|radix)\.py:", "",
+                          text)
+        assert not literal.search(text), where
+        for call in ("importlib.import_module", "__import__"):
+            for m in re.finditer(re.escape(call) + r"\(([^)]*)\)", text):
+                assert "stringsearch_tpu" not in m.group(1) \
+                    and "jax" not in m.group(1), where
