@@ -50,14 +50,32 @@ present. Phases, each printed with its result and time:
      byte, against the full index's occurrences that cross no boundary,
      with peak memory; P = 3 on 2^24 + 5 bytes and P = 7 on 5 bytes against
      the host loop over the oracle;
-  9. the CLI in process on enwik-like 2^24 bytes: `run --verify`, `bench`,
-     `queries`, `crosscheck`, and `crosscheck --trace` on the GPU and on
-     the CPU, whose trace files must be byte-identical; `global` refused;
- 10. the fuzzer on the card: 40 iterations over the engines, partitioned
-     and transforms targets, and every file of tests/corpus/; then the
-     inverse BWT's walk probe, `microbench.walk_probe(24)`.
+  9. the CLI in process on enwik-like 2^24 bytes: `run --verify`, `bench`
+     and `crosscheck` of the doubling, dc3 and bstar engines, `queries`,
+     and `crosscheck --trace` of the three engines on the GPU and on the
+     CPU, whose trace files must be byte-identical; `global` refused;
+ 10. the fuzzer on the card: 40 iterations of the three engines over the
+     engines, partitioned and transforms targets, 10 with `--idx64`, and
+     every file of tests/corpus/; then the inverse BWT's walk probe,
+     `microbench.walk_probe(24)`;
+ 11. the dc3 and bstar engines at full width on phase 3's text: each build
+     verified on the device and equal, element for element, to phase 3's
+     oracle-checked SA, with its wall, radix sort launches and peak memory;
+ 12. the sorts of more than six planes: `build_sa` at its default depth 24
+     (seven planes) at 2^28 equal to phase 3's depth-12 SA, and with
+     chunks (P = 3 on 2^24 + 5 bytes) equal to depth 12's;
+     `build_ints_with_isa` at depths 4 and 6 and `build_with_isa(idx=int64)`
+     on 2^24 bytes equal to the verified int32 byte build; `wide_sort`
+     (`device_sort` past six int32 planes) against the plain sort at 7, 10
+     and 35 planes and with int64 keys, tolerance 0, with ceil(key planes /
+     5) launches, and the 7- and 10-plane sorts timed at 2^26 and 2^28
+     beside the chained `torch.sort` and the bytes bound; bstar on 2^20
+     bytes of `(b"a" * 200 + b"b") * 3`, which runs its 35-plane extension
+     stage, equal to the oracle's SA. Phases 9 and 12 print the seconds of
+     each command or step.
 Phases 7 to 10 each zero the sort kernels' launch counts first and need
-the radix sort's > 0 and the bitonic sort's 0 afterwards.
+the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 and 12
+need the same of every build and sort they time.
 
 Every kernel's entry in the report carries `bound_ms`, the least time the
 card could take: the bytes the function must move (each input read once,
@@ -93,6 +111,8 @@ BYTES_PER_S = 3.35e12
 OPS_PER_S = 33.5e12
 # the main path's sorts: (name, planes, keys), doubling.py
 SORT_SHAPES = (("invert", 2, 1), ("initial", 4, 3), ("round", 5, 4))
+# the engines phases 9 to 11 drive
+ENGINES = "doubling,dc3,bstar"
 
 
 class SmokeFailure(Exception):
@@ -640,11 +660,11 @@ def phase6_radix() -> tuple[dict, int]:
 
 class SortLaunches:
     """Zeroes both sort kernels' launch counts on entry; on exit requires
-    the radix sort's > 0 and the bitonic sort's 0 and keeps the former in
-    `counts[phase]`."""
+    the radix sort's > 0 and the bitonic sort's 0, keeps the former in
+    `radix` and, given `counts`, in `counts[what]` with a line saying so."""
 
-    def __init__(self, phase: str, counts: dict):
-        self.phase, self.counts = phase, counts
+    def __init__(self, what: str, counts: dict | None = None):
+        self.what, self.counts = what, counts
 
     def __enter__(self):
         from stringsearch_torch.ops import bitonic, radix_sort
@@ -656,14 +676,16 @@ class SortLaunches:
     def __exit__(self, exc_type, exc, tb):
         from stringsearch_torch.ops import bitonic, radix_sort
 
+        self.radix = radix_sort.launches
         if exc_type is None:
-            self.counts[self.phase] = radix_sort.launches
-            say(f"{self.phase}: radix sort launches {radix_sort.launches}, "
-                f"bitonic launches {bitonic.launches}")
+            if self.counts is not None:
+                self.counts[self.what] = radix_sort.launches
+                say(f"{self.what}: radix sort launches {radix_sort.launches}, "
+                    f"bitonic launches {bitonic.launches}")
             check(radix_sort.launches > 0,
-                  f"{self.phase} launched no radix sort")
+                  f"{self.what} launched no radix sort")
             check(bitonic.launches == 0,
-                  f"{self.phase} launched the bitonic kernel")
+                  f"{self.what} launched the bitonic kernel")
 
 
 def phase7_bwt(text_np, sa_host, card: str) -> dict:
@@ -871,71 +893,93 @@ def phase8_partitioned(text_np, sa_host, lcs_needles, full_lens,
             "search_256_peak_bytes": many_peak}
 
 
-def phase9_cli() -> None:
+def phase9_cli() -> dict:
     import tempfile
     from stringsearch_torch.harness.cli import main as cli
     from stringsearch_torch.harness.corpus import enwik_like
 
     home = os.getcwd()
+    steps = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "enwik24.bin")
         with open(path, "wb") as f:
             f.write(enwik_like(1 << 24))
         try:
             for argv in (["run", path, "--verify"],
-                         ["bench", path, "--engines", "doubling,oracle"],
+                         ["bench", path, "--engines",
+                          "doubling,dc3,bstar,oracle"],
                          ["queries", path, "--batch", "64,256", "--reps", "5"],
-                         ["crosscheck", path]):
+                         ["crosscheck", path, "--engines", ENGINES]):
                 os.chdir(tmp)
-                say(f"phase 9: $ cli {' '.join(argv[:1] + argv[2:])}")
+                line = " ".join(argv[:1] + argv[2:])
+                say(f"phase 9: $ cli {line}")
+                t0 = time.perf_counter()
                 rc = cli(argv)
+                steps[line] = round(time.perf_counter() - t0, 4)
                 check(rc == 0, f"cli {argv[0]} returned {rc}")
             traces = {}
             for where, device in (("gpu", []), ("cpu", ["--device", "cpu"])):
                 work = os.path.join(tmp, where)
                 os.mkdir(work)
                 os.chdir(work)
-                argv = ["crosscheck", path, "64k", "--trace", *device]
-                say(f"phase 9: $ cli {' '.join(argv[:1] + argv[2:])}")
+                argv = ["crosscheck", path, "64k", "--trace", "--engines",
+                        ENGINES, *device]
+                line = " ".join(argv[:1] + argv[2:])
+                say(f"phase 9: $ cli {line}")
+                t0 = time.perf_counter()
                 rc = cli(argv)
+                steps[line] = round(time.perf_counter() - t0, 4)
                 check(rc == 0, f"cli crosscheck --trace returned {rc}")
-                with open("crosscheck/doubling", "rb") as f:
-                    traces[where] = f.read()
                 with open("crosscheck/oracle", "rb") as f:
                     tail = f.read().split(b":: SA final")[-1]
-                check(traces[where].split(b":: SA final")[-1] == tail,
-                      f"the {where} trace does not end in the oracle's SA")
-            check(traces["gpu"] == traces["cpu"],
-                  "the GPU trace differs from the CPU trace")
-            say(f"phase 9: the GPU and CPU traces are byte-identical "
-                f"({len(traces['gpu'])} B, "
-                f"{traces['gpu'].count(b':: round -> h=')} rounds) and end in "
-                f"the oracle's SA")
+                for engine in ENGINES.split(","):
+                    with open(f"crosscheck/{engine}", "rb") as f:
+                        traces[where, engine] = f.read()
+                    check(traces[where, engine].split(b":: SA final")[-1]
+                          == tail, f"the {where} {engine} trace does not end "
+                                   f"in the oracle's SA")
+            for engine in ENGINES.split(","):
+                gpu = traces["gpu", engine]
+                check(gpu == traces["cpu", engine],
+                      f"the GPU {engine} trace differs from the CPU trace")
+                say(f"phase 9: the GPU and CPU {engine} traces are "
+                    f"byte-identical ({len(gpu)} B, {gpu.count(b':: ')} "
+                    f"labels) and end in the oracle's SA")
             os.chdir(tmp)
             rc = cli(["crosscheck", path, "--engines", "global"])
             check(rc != 0, "cli crosscheck --engines global was not refused")
             say(f"phase 9: crosscheck --engines global refused, return {rc}")
         finally:
             os.chdir(home)
+    say(f"phase 9: seconds by command: {json.dumps(steps)}")
+    return steps
 
 
 def phase10_fuzz(card: str) -> dict:
     from stringsearch_torch.harness import fuzz, microbench
 
-    iters = 40
+    iters, iters64 = 40, 10
     t0 = time.perf_counter()
     rc = fuzz.main(["--iters", str(iters), "--max-len", "2048", "--seed", "1",
-                    "--targets", "engines,partitioned,transforms"])
+                    "--targets", "engines,partitioned,transforms",
+                    "--engines", ENGINES])
     fuzz_s = time.perf_counter() - t0
     check(rc == 0, f"the fuzzer returned {rc}")
-    say(f"phase 10: {iters} fuzz iterations clean in {fuzz_s:.2f} s, "
-        f"{iters / fuzz_s:.2f} iterations/s [{card}]")
+    say(f"phase 10: {iters} fuzz iterations of {ENGINES} clean in "
+        f"{fuzz_s:.2f} s, {iters / fuzz_s:.2f} iterations/s [{card}]")
+    t0 = time.perf_counter()
+    rc = fuzz.main(["--iters", str(iters64), "--max-len", "2048", "--seed",
+                    "2", "--idx64"])
+    idx64_s = time.perf_counter() - t0
+    check(rc == 0, f"the fuzzer with --idx64 returned {rc}")
+    say(f"phase 10: {iters64} fuzz iterations with --idx64 clean in "
+        f"{idx64_s:.2f} s")
     corpus = os.path.join(REPO, "tests", "corpus")
     names = sorted(os.listdir(corpus))
     for name in names:
         with open(os.path.join(corpus, name), "rb") as f:
-            err = fuzz._check(f.read(), ["doubling"], set(fuzz.TARGETS),
-                              "cuda")
+            err = fuzz._check(f.read(), ENGINES.split(","),
+                              set(fuzz.TARGETS), "cuda")
         check(err is None, f"tests/corpus/{name}: {err}")
     say(f"phase 10: all {len(names)} files of tests/corpus/ clean")
     walk = microbench.walk_probe(24)
@@ -944,7 +988,257 @@ def phase10_fuzz(card: str) -> dict:
     check(all(math.isfinite(v) and v > 0 for row in walk["walkers"].values()
               for v in row.values()) and walk["t_pointer_jumping"] > 0,
           "walk_probe times are not all finite and positive")
-    return {"iters": iters, "fuzz_s": fuzz_s}
+    return {"iters": iters, "fuzz_s": fuzz_s, "idx64_iters": iters64,
+            "idx64_s": idx64_s}
+
+
+def phase11_engines(text_np, sa_host, card: str) -> dict:
+    """dc3 and bstar on phase 3's text, each held against phase 3's SA."""
+    import torch
+    import stringsearch_torch as st
+
+    n = len(text_np)
+    text = torch.from_numpy(text_np.copy()).to("cuda")
+    want = torch.from_numpy(sa_host).to("cuda")
+    report = {}
+    for name in ("dc3", "bstar"):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with SortLaunches(f"the {name} build") as count:
+            t0 = time.perf_counter()
+            sa = st.get_engine(name)(text)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(sa.sa.device.type == "cuda" and sa.sa.dtype == torch.int32,
+              f"the {name} SA is not an int32 CUDA tensor")
+        sa.verify()
+        check(torch.equal(sa.sa, want),
+              f"the {name} SA differs from phase 3's oracle-checked SA")
+        del sa
+        say(f"phase 11: {name} build n=2^{LOG2N}: {wall:.4f} s "
+            f"({n / wall:.1f} B/s), radix sort launches {count.radix}, "
+            f"bitonic launches 0, peak CUDA memory {peak} B of which {held} "
+            f"B held before; verified and equal to phase 3's SA [{card}]")
+        report[name] = {"n": n, "wall_s": wall, "launches": count.radix,
+                        "peak_bytes": peak, "held_bytes": held}
+    del text, want
+    torch.cuda.empty_cache()
+    return report
+
+
+def _wide_cases(n: int, gen) -> list:
+    """(name, planes, num_keys): the widths of the engines' wide sorts,
+    with heavy ties, both ends of the int32 range and int64 keys."""
+    import torch
+
+    def rand(lo, hi, dtype=torch.int32):
+        return torch.randint(lo, hi, (n,), dtype=dtype, device="cuda",
+                             generator=gen)
+
+    def pick(values, dtype=torch.int32):
+        v = torch.tensor(values, dtype=dtype, device="cuda")
+        return v[rand(0, len(values), torch.int64)]
+
+    ends = [INT32_MIN, INT32_MIN + 1, -1, 0, 1, INT32_MAX - 1, INT32_MAX]
+    iota = torch.arange(n, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(n, device="cuda", generator=gen).to(torch.int32)
+    return [
+        # the depth-24 initial sort: six packed keys and the position
+        ("7 planes keys=6", [pick(ends) for _ in range(3)]
+         + [rand(-3, 3) for _ in range(3)] + [iota], 6),
+        # bstar's hop sort: eight hop words, the jump and the position
+        ("10 planes keys=8", [pick(ends), rand(-2, 2)] + [
+            rand(-2**31, INT32_MAX) if i % 3 else pick(ends)
+            for i in range(6)] + [perm, iota], 8),
+        # bstar's last extension stage
+        ("35 planes keys=34", [pick(ends) if i % 2 else rand(-1, 1)
+                               for i in range(34)] + [iota], 34),
+        ("int64 keys 4 planes keys=3",
+         [pick([-2**63, -2**32, -1, 0, 2**31, 2**32 - 1, 2**63 - 1],
+               torch.int64), pick(ends),
+          rand(-2**40, 2**40, torch.int64), iota.to(torch.int64)], 3),
+    ]
+
+
+def _key_planes(planes, num_keys) -> int:
+    import torch
+
+    return sum(2 if p.dtype == torch.int64 else 1 for p in planes[:num_keys])
+
+
+def phase12_wide(text_np, sa_host, card: str) -> dict:
+    """Every sort past six int32 planes: the depth-24 fault repaired at
+    2^28 and with chunks, the integer build, int64 indexes, `wide_sort`
+    against the plain sort and timed, bstar's extension stages. Each step's
+    wall goes into `report["step_s"]`."""
+    import torch
+    import stringsearch_torch as st
+    from stringsearch_torch import oracle
+    from stringsearch_torch.engines import bstar, doubling
+    from stringsearch_torch.harness.corpus import enwik_like
+    from stringsearch_torch.ops import bitonic
+
+    report = {}
+    steps = {}
+    t_step = time.perf_counter()
+
+    def step(name):
+        nonlocal t_step
+        now = time.perf_counter()
+        steps[name] = round(now - t_step, 4)
+        t_step = now
+
+    text = torch.from_numpy(text_np.copy()).to("cuda")
+    with SortLaunches("build_sa at depth 24") as count:
+        t0 = time.perf_counter()
+        sa24 = doubling.build_sa(text)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(torch.equal(sa24, torch.from_numpy(sa_host).to("cuda")),
+          "build_sa at depth 24 differs from phase 3's depth-12 SA")
+    del sa24, text
+    say(f"phase 12: build_sa(depth=24) n=2^{LOG2N} (a seven-plane initial "
+        f"sort): {wall:.4f} s, radix sort launches {count.radix}; equal to "
+        f"phase 3's depth-12 SA [{card}]")
+    report["depth24"] = {"n": 1 << LOG2N, "wall_s": wall,
+                         "launches": count.radix}
+    step("depth 24 at 2^28")
+
+    data = enwik_like((1 << 24) + 5)
+    chunk = len(data) // 3
+    t = torch.from_numpy(np.frombuffer(data, dtype=np.uint8).copy()).to(
+        "cuda")
+    with SortLaunches("the chunked build at depth 24") as count:
+        deep = doubling.build_sa(t, chunk=chunk)
+    check(torch.equal(deep, doubling.build_sa(t, depth=12, chunk=chunk)),
+          "the chunked build at depth 24 differs from depth 12's")
+    del deep, t
+    say(f"phase 12: build_sa(depth=24, chunk) P=3 on 2^24 + 5 bytes: equal "
+        f"to depth 12's, radix sort launches {count.radix}")
+    report["depth24_chunk_launches"] = count.radix
+    step("depth 24 with chunks at 2^24")
+
+    # the reference: the main path's int32 build of the same bytes, checked
+    # on the device (phase 4 holds the same build against the oracle on
+    # enwik_like(2^24))
+    t24 = torch.from_numpy(text_np[: 1 << 24].copy()).to("cuda")
+    sa32, isa32 = doubling.build_with_isa(t24)
+    st.SuffixArray(t24, sa32).verify()
+    for depth in (4, 6):
+        with SortLaunches(f"build_ints_with_isa(depth={depth})") as count:
+            sa, isa = doubling.build_ints_with_isa(t24.to(torch.int32),
+                                                   depth=depth)
+        check(torch.equal(sa, sa32) and torch.equal(isa, isa32),
+              f"build_ints_with_isa(depth={depth}) differs from the byte "
+              f"build")
+        say(f"phase 12: build_ints_with_isa(depth={depth}) on the 2^24 first "
+            f"bytes as integers: SA and ISA equal to the verified byte "
+            f"build's, radix sort launches {count.radix}")
+        report[f"ints_depth{depth}_launches"] = count.radix
+    with SortLaunches("build_with_isa(idx=int64)") as count:
+        sa64, isa64 = doubling.build_with_isa(t24, idx=torch.int64)
+    check(sa64.dtype == isa64.dtype == torch.int64
+          and torch.equal(sa64, sa32.long()) and torch.equal(isa64,
+                                                             isa32.long()),
+          "build_with_isa(idx=int64) differs from the int32 build")
+    say(f"phase 12: build_with_isa(idx=int64) on 2^24 bytes: int64 SA and "
+        f"ISA equal to the verified int32 build's, radix sort launches "
+        f"{count.radix}")
+    report["int64_launches"] = count.radix
+    del t24, sa, isa, sa64, isa64, sa32, isa32
+    torch.cuda.empty_cache()
+    step("integer and int64 builds at 2^24")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    shapes = []
+    for name, planes, nk in _wide_cases(1 << 24, gen):
+        with SortLaunches(f"wide_sort {name}") as count:
+            got = bitonic.device_sort(planes, nk)
+        want = bitonic.plain_sort(planes, nk)
+        err = _exact_err(got, want)
+        expect = math.ceil(_key_planes(planes, nk) / 5)
+        say(f"phase 12: wide_sort {name} n=2^24: max_abs_err={err} "
+            f"(tolerance 0), radix sort launches {count.radix} (want "
+            f"{expect})")
+        check(err == 0, f"wide_sort disagrees with the plain sort on {name}")
+        check(count.radix == expect, f"wide_sort {name} launched "
+                                     f"{count.radix} sorts, not {expect}")
+        shapes.append({"shape": name, "n": 1 << 24, "max_abs_err": err,
+                       "launches": count.radix})
+        del got, want, planes
+    torch.cuda.empty_cache()
+    step("wide_sort against plain_sort at 2^24")
+    for log2n in (26, 28):
+        n = 1 << log2n
+        for c, nk in ((7, 6), (10, 8)):
+            planes = [torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                                    device="cuda", generator=gen)
+                      for _ in range(nk)]
+            planes += [torch.arange(n, dtype=torch.int32, device="cuda")
+                       for _ in range(c - nk)]
+            with SortLaunches(f"wide_sort C={c} n=2^{log2n}") as count:
+                got = bitonic.device_sort(planes, nk)
+            want = bitonic.plain_sort(planes, nk)
+            err = _exact_err(got, want)
+            del got, want
+            ms = cuda_ms(lambda: bitonic.device_sort(planes, nk), 2)
+            library_ms = cuda_ms(lambda: bitonic.plain_sort(planes, nk), 1)
+            bounds = sort_bounds(n, c, nk)
+            say(f"phase 12: wide_sort C={c} keys={nk} n=2^{log2n}: "
+                f"max_abs_err={err} (tolerance 0), {count.radix} launches, "
+                f"{ms:.3f} ms; chained torch.sort {library_ms:.3f} ms; bound "
+                f"{bounds['bound_ms']} ms (every plane once) [{card}]")
+            check(err == 0, f"wide_sort disagrees with the plain sort at "
+                            f"C={c} n=2^{log2n}")
+            shapes.append({"shape": f"wide C={c} keys={nk}", "n": n,
+                           "max_abs_err": err, "launches": count.radix,
+                           "ms": round(ms, 4),
+                           "plain_ms": round(library_ms, 4),
+                           "library_ms": round(library_ms, 4), **bounds})
+            del planes
+            torch.cuda.empty_cache()
+    report["wide_sort"] = shapes
+    step("wide_sort timed at 2^26 and 2^28")
+
+    # every B* window of the repeats is 203 bytes long: past the 16 + 16 +
+    # 32 + 64 bytes of the bounded stages at any size
+    log2r = 20
+    unit = b"a" * 200 + b"b"
+    data = (unit * 3 * ((1 << log2r) // len(unit) + 1))[: 1 << log2r]
+    seen = []
+
+    def logged(operands, num_keys=1):
+        operands = tuple(operands)
+        seen.append(len(operands))
+        return bitonic.device_sort(operands, num_keys)
+
+    bstar.device_sort = logged
+    try:
+        with SortLaunches("bstar on the repeats") as count:
+            t0 = time.perf_counter()
+            sa = bstar.sort(data, device="cuda").sa
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        bstar.device_sort = bitonic.device_sort
+    same = np.array_equal(sa.cpu().numpy(), oracle.build(data))
+    stages = [c for c in seen if c in (7, 11, 19, 35)]
+    say(f"phase 12: bstar on 2^{log2r} bytes of (a*200 + b)*3: {wall:.4f} s, "
+        f"radix sort launches {count.radix}, extension sorts of {stages} "
+        f"planes; equal to oracle.build: {same}")
+    check(same, "bstar differs from the oracle on the repeats")
+    check(35 in stages, "bstar's unbounded extension stage did not run")
+    report["bstar_repeats"] = {"n": 1 << log2r, "wall_s": wall,
+                               "launches": count.radix,
+                               "extension_planes": stages}
+    step("bstar on the repeats")
+    say(f"phase 12: seconds by step: {json.dumps(steps)}")
+    report["step_s"] = steps
+    return report
 
 
 def main() -> int:
@@ -999,15 +1293,21 @@ def main() -> int:
             partitioned_report = phase8_partitioned(
                 text_np, sa_host, lcs_needles, lcs_lens, card)
         say(f"phase 8: passed in {time.perf_counter() - t0:.2f} s")
-        del text_np, sa_host
         t0 = time.perf_counter()
         with SortLaunches("phase 9", phase_launches):
-            phase9_cli()
+            cli_steps = phase9_cli()
         say(f"phase 9: passed in {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         with SortLaunches("phase 10", phase_launches):
             fuzz_report = phase10_fuzz(card)
         say(f"phase 10: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        engines_report = phase11_engines(text_np, sa_host, card)
+        say(f"phase 11: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        wide_report = phase12_wide(text_np, sa_host, card)
+        say(f"phase 12: passed in {time.perf_counter() - t0:.2f} s")
+        del text_np, sa_host
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1
@@ -1041,6 +1341,10 @@ def main() -> int:
         shapes = sorts[name]["shapes"]
         head = next(s for s in shapes if s["shape"].startswith("round")
                     and s["n"] == 1 << LOG2N)
+        errs = [s["max_abs_err"] for s in shapes]
+        if "fault_repair" in more:
+            errs += [s["max_abs_err"]
+                     for s in more["fault_repair"]["wide_sort"]]
         return {
             "name": name,
             "route": "cuda",
@@ -1048,7 +1352,7 @@ def main() -> int:
             "replaces": "stringsearch_tpu/ops/bitonic.py:240",
             "also_replaces": "stringsearch_tpu/ops/bitonic.py:263",
             "launches": launches,
-            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "max_abs_err": max(errs),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
@@ -1064,8 +1368,10 @@ def main() -> int:
                    build["launches"], probe_launches=probe_sort_launches,
                    plain_radix_sort=sorts["radix_sort"]["plain_radix_sort"],
                    build=build, queries=queries,
-                   phase_launches=phase_launches, bwt=bwt_report,
-                   partitioned=partitioned_report, fuzz=fuzz_report),
+                   phase_launches=phase_launches, cli_step_s=cli_steps,
+                   bwt=bwt_report,
+                   partitioned=partitioned_report, fuzz=fuzz_report,
+                   engines=engines_report, fault_repair=wide_report),
         sort_entry("bitonic_sort", "stringsearch_torch/ops/csrc/bitonic.cu",
                    build["bitonic_launches"]),
         *radix_kernels]}))

@@ -1,10 +1,11 @@
 """SACA engines (suffix-array construction algorithms).
 
-Counterpart of stringsearch_tpu/engines. Engines here:
-- "doubling": prefix-doubling SACA with tied-group compaction, every sort
-  through the Hopper radix sort on CUDA.
+Counterpart of stringsearch_tpu/engines. Engines here, every sort through
+the Hopper radix sort on CUDA:
+- "doubling": prefix-doubling SACA with tied-group compaction;
+- "dc3": the difference-cover mod-3 recursion;
+- "bstar": B*-reduction with induced sorting, divsufsort's structure;
 - "oracle": the trusted host C++ SA-IS engine, for differential checks.
-"dc3" and "bstar" are not ported yet (ROADMAP, modules to port).
 """
 
 from __future__ import annotations
@@ -13,12 +14,6 @@ from typing import Callable
 
 from stringsearch_torch.core.types import BytesLike, SuffixArray
 
-_NOT_PORTED = {
-    "dc3": "engines/dc3.py is not ported yet (ROADMAP: modules to port, dc3)",
-    "bstar": "engines/bstar.py is not ported yet (ROADMAP: modules to port, "
-             "bstar, after build_ints_with_isa)",
-}
-
 
 def get_engine(name: str) -> Callable[..., SuffixArray]:
     """The engine's `sort(text, device=None) -> SuffixArray`."""
@@ -26,12 +21,18 @@ def get_engine(name: str) -> Callable[..., SuffixArray]:
         from stringsearch_torch.engines.doubling import sort
 
         return sort
+    if name == "dc3":
+        from stringsearch_torch.engines.dc3 import sort
+
+        return sort
+    if name == "bstar":
+        from stringsearch_torch.engines.bstar import sort
+
+        return sort
     if name == "oracle":
         from stringsearch_torch.oracle import sort
 
         return sort
-    if name in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[name])
     raise KeyError(
         f"unknown engine {name!r} (have: doubling, dc3, bstar, oracle)")
 
@@ -43,6 +44,5 @@ def build_suffix_array(text: BytesLike, engine: str = "doubling",
     return get_engine(engine)(text, device=device)
 
 
-# every engine name of the reference's registry, in its order; `get_engine`
-# raises NotImplementedError for those not ported yet
+# every engine name of the reference's registry, in its order
 ENGINES = ("doubling", "dc3", "bstar", "oracle")

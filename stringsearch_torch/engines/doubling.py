@@ -38,7 +38,9 @@ What differs from the JAX package, and why:
     owns slots [p * chunk, (p + 1) * chunk)); every test for "past the
     end" is a test against the END OF THE SUFFIX'S CHUNK. The flat build
     is the case of one chunk (`chunk == n`), with the same sorts as ever.
-Indexes are int32 (n < 2^31); the int64 index mode is not ported yet.
+Indexes are int32 (n < 2^31) unless `idx=torch.int64`: then positions,
+ranks and the SA are int64, and the packed text keys stay int32. On CUDA
+`device_sort` sorts an int64 plane as two int32 planes.
 """
 
 from __future__ import annotations
@@ -46,20 +48,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stringsearch_torch.core.types import SuffixArray, as_text_tensor
+from stringsearch_torch.core.types import (
+    DEFAULT_DEVICE,
+    SuffixArray,
+    as_text_tensor,
+)
 from stringsearch_torch.ops.bitonic import device_sort
 
 _I32 = torch.int32
-_SENT = torch.iinfo(torch.int32).max
+_IDX = (torch.int32, torch.int64)
 # XOR with INT32_MIN flips bit 31: maps uint32 order onto int32 order
 _BIAS = torch.iinfo(torch.int32).min
 
 
+def _sent(dtype) -> int:
+    """The pad and sentinel value of an index dtype: its largest value."""
+    return torch.iinfo(dtype).max
+
+
+def _check_idx(idx) -> None:
+    if idx not in _IDX:
+        raise TypeError(f"idx must be torch.int32 or torch.int64, got {idx}")
+
+
 def _check_args(idx, depth: int, fan: int) -> None:
-    if idx != _I32:
-        raise NotImplementedError(
-            "only idx=torch.int32 is ported; the int64 index mode is a "
-            "ROADMAP item")
+    _check_idx(idx)
     if depth % 4 or depth < 4:
         raise ValueError("depth must be a positive multiple of 4")
     if fan < 2:
@@ -67,8 +80,8 @@ def _check_args(idx, depth: int, fan: int) -> None:
         raise ValueError("fan must be >= 2")
 
 
-def _iota(n: int, device) -> torch.Tensor:
-    return torch.arange(n, dtype=_I32, device=device)
+def _iota(n: int, device, dtype=_I32) -> torch.Tensor:
+    return torch.arange(n, dtype=dtype, device=device)
 
 
 def _chunk_len(n: int, chunk) -> int:
@@ -165,7 +178,7 @@ def _ranks_sorted_only(out):
     """
     sa_s = out[-1]
     n = sa_s.shape[0]
-    j = _iota(n, sa_s.device)
+    j = _iota(n, sa_s.device, sa_s.dtype)
     diff = torch.zeros((max(n - 1, 0),), dtype=torch.bool, device=sa_s.device)
     for ks in out[:-1]:
         diff |= ks[1:] != ks[:-1]
@@ -175,8 +188,9 @@ def _ranks_sorted_only(out):
     return sa_s, rank_s, tied.sum()
 
 
-def _initial_sorted(text, depth: int = 24, chunk=None):
-    """`depth`-byte initial sort. Returns (sa_s, rank_s, count_tied).
+def _initial_sorted(text, depth: int = 24, chunk=None, idx=_I32):
+    """`depth`-byte initial sort. Returns (sa_s, rank_s, count_tied),
+    positions and ranks of dtype `idx`.
 
     With more than one chunk the chunk index leads the keys, so chunk p
     comes out in slots [p * chunk, (p + 1) * chunk) and no group of tied
@@ -184,7 +198,7 @@ def _initial_sorted(text, depth: int = 24, chunk=None):
     """
     n = text.shape[0]
     keys = _pack4_keys(text, depth, chunk)
-    j = _iota(n, text.device)
+    j = _iota(n, text.device, idx)
     if _chunk_len(n, chunk) < n:
         keys = (torch.div(j, chunk, rounding_mode="floor"),) + keys
     out = device_sort(keys + (j,), num_keys=len(keys))
@@ -222,7 +236,8 @@ def _full_round_sorted(rank, h: int, fan: int = 2, chunk=None):
         _shift_ranks(rank, min(h, chunk // k + 1) * k, chunk)
         for k in range(1, fan)
     )
-    out = device_sort(keys + (_iota(n, rank.device),), num_keys=fan)
+    out = device_sort(keys + (_iota(n, rank.device, rank.dtype),),
+                      num_keys=fan)
     del keys
     return _ranks_sorted_only(out)
 
@@ -231,29 +246,31 @@ def _extract(rank_s, sa_s, m: int, method: str = "topk"):
     """Compact the members of all tied groups into capacity-m arrays.
 
     Returns (g [m], pos [m]): group-head ranks and text positions, sorted
-    by g (groups contiguous). Pad slots carry g = INT32_MAX, pos = n.
+    by g (groups contiguous). Pad slots carry g = the dtype's largest
+    value (`_sent`), pos = n.
     "topk" takes the m smallest masked keys, "sort" sorts all of them;
     both give the same groups, in any order inside a group.
     """
     n = rank_s.shape[0]
-    j = _iota(n, rank_s.device)
+    sent = _sent(rank_s.dtype)
+    j = _iota(n, rank_s.device, rank_s.dtype)
     nxt_head = torch.cat([rank_s[1:], rank_s.new_full((1,), -1)])
     tied = (rank_s != j) | (nxt_head == rank_s)
-    key = torch.where(tied, rank_s, _SENT)
+    key = torch.where(tied, rank_s, sent)
     if method == "topk":
         g, idxs = torch.topk(key, m, largest=False, sorted=True)
-        pos = torch.where(g == _SENT, n, sa_s[idxs])
+        pos = torch.where(g == sent, n, sa_s[idxs])
         return g, pos
     ks, pos = device_sort((key, sa_s), num_keys=1)
     g = ks[:m]
-    pos = torch.where(g == _SENT, n, pos[:m])
+    pos = torch.where(g == sent, n, pos[:m])
     return g, pos
 
 
 def _compact_round(g, pos, rank, sa, h: int, fan: int = 2, chunk=None):
     """One compacted round over the tied groups only.
 
-    g/pos: [m] group-head ranks + positions (pads g=INT32_MAX, pos=n).
+    g/pos: [m] group-head ranks + positions (pads g=`_sent`, pos=n).
     rank/sa: the full state as [n+1] buffers, updated IN PLACE; slot n
     takes the pads' writes and is never read. Returns
     (g', pos', rank, sa, count) with resolved entries blanked to pads.
@@ -264,11 +281,12 @@ def _compact_round(g, pos, rank, sa, h: int, fan: int = 2, chunk=None):
     chunk = _chunk_len(n, chunk)
     m = g.shape[0]
     dev = g.device
-    j = _iota(m, dev)
+    sent = _sent(g.dtype)
+    j = _iota(m, dev, g.dtype)
     # a pad's pos is n, which looks like the first byte of a chunk: pads
     # are past the end whatever the shift
     local = pos % chunk
-    pad = g == _SENT
+    pad = g == sent
     shift_keys = []
     for k in range(1, fan):
         # overflow guard as in _full_round_sorted; the past-end test is
@@ -290,14 +308,14 @@ def _compact_round(g, pos, rank, sa, h: int, fan: int = 2, chunk=None):
     run_f = group_f | torch.cat([ones, kdiff])
     ghead = _segment_heads(group_f, j)
     rhead = _segment_heads(run_f, j)
-    valid = g_s != _SENT
+    valid = g_s != sent
     slot = torch.where(valid, g_s + (j - ghead), n)
-    new_g = torch.where(valid, g_s + (rhead - ghead), _SENT)
+    new_g = torch.where(valid, g_s + (rhead - ghead), sent)
     rank[torch.where(valid, pos_s, n)] = new_g
     sa[slot] = pos_s
     nxt_rhead = torch.cat([rhead[1:], rhead.new_full((1,), -1)])
     tied = valid & ((rhead != j) | (nxt_rhead == rhead))
-    g_next = torch.where(tied, new_g, _SENT)
+    g_next = torch.where(tied, new_g, sent)
     pos_next = torch.where(tied, pos_s, n)
     return g_next, pos_next, rank, sa, tied.sum()
 
@@ -394,16 +412,16 @@ def build_with_isa(text, idx=_I32, depth: int = 24,
 
     A `depth`-byte initial sort, full rounds while more than n/levels[0]
     positions stay tied, then a cascade of compaction levels with
-    capacities n/levels[i].
+    capacities n/levels[i]. `idx` is the dtype of `sa` and `isa`,
+    torch.int32 or torch.int64.
 
     `chunk` (a divisor of n) sorts every `chunk` bytes of the text for
     themselves, all in the same sorts: slots [p * chunk, (p + 1) * chunk)
     of `sa` hold the suffix array of chunk p as positions in the whole
-    text, and `isa` is its inverse. A sort takes at most six planes, which
-    bounds `depth` at 16 bytes where there is more than one chunk.
+    text, and `isa` is its inverse.
     """
     text = _prepare(text, idx, depth, fan, device)
-    sa_s0, rank_s0, count0 = _initial_sorted(text, depth, chunk)
+    sa_s0, rank_s0, count0 = _initial_sorted(text, depth, chunk, idx)
     h0 = min(depth, _chunk_len(text.shape[0], chunk))
     return _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
                    adaptive, want_isa=True, chunk=chunk)
@@ -417,11 +435,50 @@ def build_sa(text, idx=_I32, depth: int = 24,
     sort when the build resolves in the full rounds. `sort()` and the
     partitioned index (with `chunk`) use this."""
     text = _prepare(text, idx, depth, fan, device)
-    sa_s0, rank_s0, count0 = _initial_sorted(text, depth, chunk)
+    sa_s0, rank_s0, count0 = _initial_sorted(text, depth, chunk, idx)
     h0 = min(depth, _chunk_len(text.shape[0], chunk))
     sa, _ = _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
                     adaptive, want_isa=False, chunk=chunk)
     return sa
+
+
+def build_ints_with_isa(seq, idx=_I32, depth: int = 4,
+                        levels: tuple = (4, 32, 256), fan: int = 4,
+                        device=None):
+    """SA and ISA of an integer sequence, (sa, isa) of dtype `idx` [n].
+
+    The doubling engine over an integer alphabet, the reduced-string
+    solver of dc3's tail and of the bstar engine. The initial keys are
+    exact: key t of element i is seq[i+t], or the past-the-end marker
+    -(i+1) (`_shift_ranks`), so the initial ranks are exact
+    depth-`depth` classes; one sort of `depth` keys and the position.
+    Only the values' order matters, negative values too. A tensor stays
+    on its device unless `device` is given; a host array goes to
+    `device`, "cuda" unless told otherwise.
+    """
+    _check_idx(idx)
+    if depth < 1:
+        raise ValueError("depth must be >= 1")
+    if fan < 2:
+        raise ValueError("fan must be >= 2")
+    if not isinstance(seq, torch.Tensor):
+        seq = torch.as_tensor(np.asarray(seq), device=device or DEFAULT_DEVICE)
+    elif device is not None:
+        seq = seq.to(device)
+    n = seq.shape[0]
+    seq = seq.to(idx)
+    if n == 0:
+        return seq, seq
+    # the markers -(i+1) must sort below every real value: bias the
+    # sequence to be non-negative
+    seq = seq - seq.min()
+    keys = (seq,) + tuple(_shift_ranks(seq, t) for t in range(1, depth))
+    out = device_sort(keys + (_iota(n, seq.device, idx),), num_keys=depth)
+    del keys
+    sa_s0, rank_s0, count0 = _ranks_sorted_only(out)
+    del out
+    return _refine(sa_s0, rank_s0, count0, min(depth, n), levels, fan,
+                   want_isa=True)
 
 
 _TRACE_DEPTH = 8  # a shallow initial sort, so traces show the rounds

@@ -22,9 +22,11 @@ or a `crash-<sha1>` found with one package replays on the other.
 Failures are shrunk by greedy bisection and written to
 fuzz-crashes/crash-<sha1>; commit survivors under tests/corpus/.
 
-Not ported, each refused with a message and return code 2: the `global`
-target (the multi-device layer) and `--idx64` (the int64 index mode). The
-XLA compilation cache and its environment variables have no counterpart.
+`--idx64` also builds every input with the doubling engine at
+`idx=torch.int64` and compares it with the oracle. Not ported, and refused
+with a message and return code 2: the `global` target (the multi-device
+layer). The XLA compilation cache and its environment variables have no
+counterpart.
 
 Run: python -m stringsearch_torch.harness.fuzz --iters 200 --device cpu
 """
@@ -52,8 +54,6 @@ _FIXED_LENS = (
 TARGETS = ("engines", "partitioned", "transforms")
 GLOBAL_REFUSED = ("the `global` target is not ported: it needs the "
                   "multi-device layer (ROADMAP.md §1, multi-device layer)")
-IDX64_REFUSED = ("--idx64 is not ported: the engine builds int32 indexes "
-                 "only (ROADMAP.md §1, the idx=int64 mode)")
 
 
 def _length_pool(rng: np.random.Generator, max_len: int, extra: int = 32):
@@ -90,11 +90,16 @@ def _mutate(rng: np.random.Generator, n: int) -> bytes:
     return bytes(arr)
 
 
-def _check_engines(data: bytes, engines, device=None) -> str | None:
-    """Differential check against the C++ oracle."""
+def _check_engines(data: bytes, engines, device=None,
+                   idx64: bool = False) -> str | None:
+    """Differential check against the C++ oracle; with `idx64`, the
+    doubling engine's int64 index mode too."""
+    import torch
+
     from stringsearch_torch import oracle
     from stringsearch_torch.core.types import NotSorted
     from stringsearch_torch.engines import get_engine
+    from stringsearch_torch.engines.doubling import build_with_isa
 
     want = oracle.build(data)
     if oracle.sufcheck(data, want) != 0:
@@ -107,6 +112,12 @@ def _check_engines(data: bytes, engines, device=None) -> str | None:
             return f"{name}: verify failed: {e}"
         if not np.array_equal(sa.sa.cpu().numpy(), want):
             return f"{name}: mismatch vs oracle"
+    if idx64 and len(data) >= 3:
+        sa, _isa = build_with_isa(np.frombuffer(data, dtype=np.uint8),
+                                  idx=torch.int64, device=device)
+        if sa.dtype != torch.int64 or not np.array_equal(sa.cpu().numpy(),
+                                                         want):
+            return "doubling idx=int64: mismatch vs oracle"
     return None
 
 
@@ -231,13 +242,14 @@ def _check_transforms(data: bytes, device=None) -> str | None:
     return None
 
 
-def _check(data: bytes, engines, targets, device=None) -> str | None:
+def _check(data: bytes, engines, targets, device=None,
+           idx64: bool = False) -> str | None:
     """Run every selected target check on `data`.
 
     Deterministic in `data`: any randomness (the needles) is seeded from
     the input bytes, so crash artifacts replay exactly."""
     if "engines" in targets:
-        err = _check_engines(data, engines, device)
+        err = _check_engines(data, engines, device, idx64)
         if err:
             return err
     if "partitioned" in targets:
@@ -251,7 +263,8 @@ def _check(data: bytes, engines, targets, device=None) -> str | None:
     return None
 
 
-def _shrink(data: bytes, engines, targets, device=None) -> bytes:
+def _shrink(data: bytes, engines, targets, device=None,
+            idx64: bool = False) -> bytes:
     """Greedy bisection shrink of a failing input (deterministic)."""
     changed = True
     while changed and len(data) > 1:
@@ -260,8 +273,8 @@ def _shrink(data: bytes, engines, targets, device=None) -> bytes:
             if cut == 0:
                 continue
             for cand in (data[cut:], data[:-cut]):
-                if cand and _check(cand, engines, targets,
-                                   device) is not None:
+                if cand and _check(cand, engines, targets, device,
+                                   idx64) is not None:
                     data = cand
                     changed = True
                     break
@@ -290,13 +303,11 @@ def main(argv=None) -> int:
              "(deterministic: needles are derived from the bytes)",
     )
     ap.add_argument("--idx64", action="store_true",
-                    help="refused: the int64 index mode is not ported")
+                    help="also build with the doubling engine at "
+                         "idx=torch.int64 and compare with the oracle")
     args = ap.parse_args(argv)
 
     targets = set(args.targets.split(","))
-    if args.idx64:
-        print(f"error: {IDX64_REFUSED}", file=sys.stderr)
-        return 2
     if "global" in targets:
         print(f"error: {GLOBAL_REFUSED}", file=sys.stderr)
         return 2
@@ -315,7 +326,7 @@ def main(argv=None) -> int:
     if args.replay is not None:
         with open(args.replay, "rb") as f:
             data = f.read()
-        err = _check(data, engines, targets, device)
+        err = _check(data, engines, targets, device, args.idx64)
         print(f"replay {args.replay} ({len(data)}B): "
               f"{err if err else 'no failure'}")
         return 1 if err else 0
@@ -330,10 +341,10 @@ def main(argv=None) -> int:
     for i in range(args.iters):
         n = int(rng.choice(lens))
         data = _mutate(rng, n)
-        err = _check(data, engines, targets, device)
+        err = _check(data, engines, targets, device, args.idx64)
         if err is not None:
             failures += 1
-            shrunk = _shrink(data, engines, targets, device)
+            shrunk = _shrink(data, engines, targets, device, args.idx64)
             digest = hashlib.sha1(shrunk).hexdigest()
             os.makedirs(args.out, exist_ok=True)
             path = os.path.join(args.out, f"crash-{digest}")

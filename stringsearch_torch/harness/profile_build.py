@@ -16,14 +16,17 @@ chained `torch.sort` in its place, and prints for each:
     device's idle share, 1 - summed kernel time / median unprofiled wall.
 Then, on each of the three sorts, the build walls of the small and
 adversarial inputs that `chip_smoke.py` holds against the oracle, whose
-cost is many small sorts. Last, at 2^28 on the radix sort, the same sort
+cost is many small sorts. Then, at 2^28 on the radix sort, the same sort
 times and kernel sums for what is built on the flat build: the partitioned
 build (four partitions in one build), `bwt_from_sa` and `_unbwt_kernel`.
-Needs a CUDA device.
+Last, the same for the dc3 and bstar engines' builds at 2^28, with the
+radix sort's launches and the host syncs of one build. Needs a CUDA
+device.
 
     python -m stringsearch_torch.harness.profile_build transforms
+    python -m stringsearch_torch.harness.profile_build engines
 
-runs that last part alone.
+run the last two parts alone.
 """
 
 from __future__ import annotations
@@ -33,13 +36,14 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from collections import defaultdict
 
 import numpy as np
 import torch
 
 import stringsearch_torch as st
-from stringsearch_torch.engines import doubling
+from stringsearch_torch.engines import bstar, dc3, doubling
 from stringsearch_torch.harness.corpus import enwik_like, regression_corpus
 from stringsearch_torch.ops import bitonic, radix_sort
 
@@ -120,13 +124,20 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
 
         log = []
         route(_timed(sort, log))
-        run()
+        launches = radix_sort.launches
+        syncs = _syncs(fn)
+        torch.cuda.synchronize()
+        launches = radix_sort.launches - launches
         route(sort)
-        sorts = 0.0
+        by_shape = defaultdict(lambda: [0, 0.0])
         for c, nk, start, end in log:
-            ms = start.elapsed_time(end)
-            sorts += ms
-            print(f"   sort C={c} keys={nk}: {ms:.3f} ms")
+            by_shape[(c, nk)][0] += 1
+            by_shape[(c, nk)][1] += start.elapsed_time(end)
+        sorts = sum(ms for _, ms in by_shape.values())
+        for (c, nk), (count, ms) in sorted(by_shape.items()):
+            print(f"   sort C={c} keys={nk}: {count} x, {ms:.3f} ms")
+        print(f"   {len(log)} device_sort calls, {launches} radix sort "
+              f"launches, {syncs} host syncs")
 
         per = _kernel_sums(run)
         busy = sum(ms for ms, _ in per.values())
@@ -143,6 +154,31 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
                 print(f"   {ms:10.3f} ms x {count:3d}  {name}")
     finally:
         route(bitonic.device_sort)
+
+
+def _syncs(fn) -> int:
+    """fn(), and the number of times it made the host wait for the device
+    (`torch.cuda.set_sync_debug_mode` warns once for each)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def profile_engines(log2n: int = 28) -> None:
+    """The dc3 and bstar builds at 2^log2n on the radix sort."""
+    n = 1 << log2n
+    text = torch.from_numpy(
+        np.frombuffer(enwik_like(n), dtype=np.uint8).copy()).to("cuda")
+    for name, module in (("dc3", dc3), ("bstar", bstar)):
+        profile(f"2^{log2n} {name} build",
+                lambda m=module: m.sort(text), modules=(module, doubling),
+                nbytes=n)
+        torch.cuda.empty_cache()
 
 
 def profile_transforms(log2n: int = 28) -> None:
@@ -224,6 +260,9 @@ def main() -> None:
     if sys.argv[1:] == ["transforms"]:
         profile_transforms()
         return
+    if sys.argv[1:] == ["engines"]:
+        profile_engines()
+        return
     bitonic.load_library()
     for log2n in SIZES:
         text = torch.from_numpy(
@@ -239,6 +278,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     compaction_walls()
     profile_transforms()
+    profile_engines()
 
 
 if __name__ == "__main__":

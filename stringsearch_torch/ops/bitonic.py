@@ -1,4 +1,4 @@
-"""`device_sort`: every sort of the doubling engine, through one function.
+"""`device_sort`: every sort of the engines, through one function.
 
 Counterpart of stringsearch_tpu/ops/bitonic.py. There, `device_sort` takes
 the Pallas bitonic network (`_local_sort_kernel` + `_make_cross`) when it
@@ -6,7 +6,7 @@ is switched on and XLA's sort otherwise. Here it takes the hand-written
 Hopper radix sort (`ops/radix_sort.py`, `csrc/radix_sort.cu`) for every
 CUDA call, at every n, and the plain version below for tensors on the CPU.
 There is no other route and no fallback: on CUDA the operands must be
-int32 planes.
+int32 or int64 planes.
 
 Both routes are stable and equal `jax.lax.sort(operands, num_keys=...)`
 element for element: the radix sort by construction, the plain version as
@@ -32,6 +32,8 @@ from stringsearch_torch.ops.radix_sort import radix_sort
 
 _SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "bitonic.cu")
 _MAX_PLANES = 6
+# keys a `wide_sort` launch takes: the sixth plane is the permutation
+_GROUP = _MAX_PLANES - 1
 
 # Number of kernel sorts launched by `bitonic_sort` in this process.
 launches = 0
@@ -128,14 +130,76 @@ def bitonic_sort(operands, num_keys: int = 1) -> tuple:
     return outs
 
 
+def _key_words(key: torch.Tensor) -> tuple:
+    """The int32 planes of one key, most significant first, in signed
+    order: an int32 key itself; an int64 key as its high word (signed)
+    and its low word XOR 0x80000000 (unsigned order as signed)."""
+    if key.dtype == torch.int32:
+        return (key,)
+    return ((key >> 32).to(torch.int32),
+            ((key & 0xFFFFFFFF) - (1 << 31)).to(torch.int32))
+
+
+def wide_sort(operands, num_keys: int, narrow) -> tuple:
+    """`lax.sort`-shaped stable sort of int32 and int64 planes, composed
+    of `narrow` sorts of at most six int32 planes.
+
+    A stable LSD sort over groups of keys: from the last group of up to
+    five int32 key planes to the first, one `narrow` sort of (the group's
+    keys gathered through the running permutation, the permutation);
+    then every operand gathered once through the final permutation, in
+    its own dtype. An int64 key is two int32 key planes (`_key_words`),
+    an int64 payload is only gathered. So a sort of k int32 key planes
+    makes ceil(k / 5) `narrow` calls. `narrow` (on CUDA `radix_sort`)
+    must be stable and take (planes, num_keys).
+
+    The running permutation is int32, and `radix_sort` refuses 2^31
+    elements or more: on CUDA, int64 planes (and so `idx=torch.int64`
+    builds) work for n < 2^31 only, where they change the index dtype
+    and not the reach.
+    """
+    operands = tuple(operands)
+    for op in operands:
+        if op.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"wide_sort takes int32 and int64 planes, got "
+                            f"{op.dtype}")
+    if not 1 <= num_keys <= len(operands):
+        raise ValueError(f"num_keys must be in 1..{len(operands)}, got "
+                         f"{num_keys}")
+    # (operand, word) of every int32 key plane, most significant first
+    words = [(i, w) for i in range(num_keys)
+             for w in range(2 if operands[i].dtype == torch.int64 else 1)]
+    perm = None
+    for end in range(len(words), 0, -_GROUP):
+        group = words[max(end - _GROUP, 0):end]
+        gathered = {}
+        planes = []
+        for i, w in group:
+            if i not in gathered:
+                gathered[i] = _key_words(
+                    operands[i] if perm is None else operands[i][perm])
+            planes.append(gathered[i][w])
+        if perm is None:
+            perm = torch.arange(operands[0].shape[0], dtype=torch.int32,
+                                device=operands[0].device)
+        perm = narrow(tuple(planes) + (perm,), len(planes))[-1]
+        del gathered, planes
+    return tuple(op[perm] for op in operands)
+
+
 def device_sort(operands, num_keys: int = 1) -> tuple:
     """`lax.sort`-shaped sort of 1-D operands by their first `num_keys`.
 
-    CPU tensors go to `plain_sort`; every other tensor to `radix_sort`,
-    which takes int32 CUDA planes only and raises on anything else. Stable
-    on both.
+    CPU tensors go to `plain_sort`. On CUDA, at most six int32 planes are
+    one `radix_sort` launch; more planes, or int64 planes, go to
+    `wide_sort` over `radix_sort`; any other dtype raises. Stable on both.
+    On CUDA n must be below 2^31 (`radix_sort`'s int32 n), int64 planes
+    included.
     """
     operands = tuple(operands)
     if operands[0].device.type == "cpu":
         return plain_sort(operands, num_keys)
-    return radix_sort(operands, num_keys)
+    if len(operands) <= _MAX_PLANES and all(
+            op.dtype == torch.int32 for op in operands):
+        return radix_sort(operands, num_keys)
+    return wide_sort(operands, num_keys, radix_sort)

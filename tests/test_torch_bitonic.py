@@ -170,12 +170,22 @@ def test_kernel_matches_plain(cuda, c, num_keys, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sort", [bitonic.bitonic_sort, bitonic.device_sort])
 def test_kernel_leaves_inputs_and_rejects_other_dtypes(cuda, sort):
+    """`device_sort` takes int64 planes (as pairs of int32 planes);
+    `bitonic_sort` takes int32 only; neither takes bytes."""
     k = torch.tensor([3, 1, 2], dtype=torch.int32, device=cuda)
     v = torch.arange(3, dtype=torch.int32, device=cuda)
     sort((k, v), 1)
     assert k.tolist() == [3, 1, 2] and v.tolist() == [0, 1, 2]
+    k64 = k.to(torch.int64) - (1 << 40)
+    if sort is bitonic.device_sort:
+        got = sort((k64, v), 1)
+        assert got[0].tolist() == sorted(k64.tolist())
+        assert got[1].tolist() == [1, 2, 0]
+    else:
+        with pytest.raises(TypeError):
+            sort((k64, v), 1)
     with pytest.raises(TypeError):
-        sort((k.to(torch.int64), v), 1)
+        sort((k.to(torch.uint8), v), 1)
 
 
 @pytest.mark.parametrize("name", ["device stages 2", "device stages 1",

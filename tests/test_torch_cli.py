@@ -112,8 +112,8 @@ def test_crosscheck_trace_files_equal_the_jax_cli(name, tmp_path, capsys,
 def test_cli_crosscheck_trace_all_engines(sample_file, capsys, tmp_path,
                                           monkeypatch):
     """`--trace` with the oracle beside the doubling engine: an engine with
-    no traced build path runs untraced, with a warning; dc3 and bstar are
-    not ported and have none."""
+    no traced build path runs untraced, with a warning. dc3 and bstar have
+    one, as in the reference."""
     monkeypatch.chdir(tmp_path)
     assert main(["crosscheck", sample_file, "1k", "--trace", "--device",
                  "cpu", "--engines", "doubling,oracle"]) == 0
@@ -121,11 +121,14 @@ def test_cli_crosscheck_trace_all_engines(sample_file, capsys, tmp_path,
     assert "oracle: verify OK, byte-exact match vs oracle" in captured.out
     assert "'oracle' has no traced build path" in captured.err
     assert sorted(os.listdir("crosscheck")) == ["doubling", "oracle"]
-    assert _traced_engine("doubling") is not None
-    assert all(_traced_engine(e) is None for e in ("dc3", "bstar", "oracle"))
-    with pytest.raises(NotImplementedError):
-        main(["crosscheck", sample_file, "--device", "cpu", "--engines",
-              "dc3"])
+    assert all(_traced_engine(e) is not None
+               for e in ("doubling", "dc3", "bstar"))
+    assert _traced_engine("oracle") is None
+    assert main(["crosscheck", sample_file, "1k", "--device", "cpu",
+                 "--engines", "dc3,bstar"]) == 0
+    out = capsys.readouterr().out
+    assert "dc3: verify OK, byte-exact match vs oracle" in out
+    assert "bstar: verify OK, byte-exact match vs oracle" in out
 
 
 def test_cli_bench_table(sample_file, capsys):
@@ -137,12 +140,13 @@ def test_cli_bench_table(sample_file, capsys):
 
 
 def test_cli_bench_skips_what_is_not_ported(sample_file, capsys):
+    """Every engine of the registry is ported and benched; an unknown name
+    is skipped."""
     assert main(["bench", sample_file, "2k", "--device", "cpu"]) == 0
     captured = capsys.readouterr()
-    assert "skipping dc3: not implemented" in captured.err
-    assert "skipping bstar: not implemented" in captured.err
+    assert "skipping" not in captured.err
     rows = [line.split()[0] for line in captured.out.splitlines()[2:]]
-    assert rows == ["doubling", "oracle"]
+    assert rows == ["doubling", "dc3", "bstar", "oracle"]
     assert main(["bench", sample_file, "2k", "--device", "cpu", "--engines",
                  "nope"]) == 0
     assert "skipping nope" in capsys.readouterr().err

@@ -131,6 +131,15 @@ def test_planted_failure_is_found_shrunk_and_replayed(
     (["--targets", "engines,nothing"], "unknown targets"),
 ])
 def test_fuzz_refuses_what_is_not_ported(argv, word, capsys):
+    """`global` and unknown targets are refused; `--idx64`, refused until
+    the int64 index mode was ported, now runs it."""
+    if argv == ["--idx64"]:
+        assert fuzz.main(["--iters", "3", "--seed", "4", "--device", "cpu",
+                          *argv]) == 0
+        captured = capsys.readouterr()
+        assert "done: 3 iterations, 0 failures" in captured.out
+        assert captured.err == ""
+        return
     assert fuzz.main(["--iters", "1", "--device", "cpu", *argv]) == 2
     captured = capsys.readouterr()
     assert word in captured.err and captured.out == ""
