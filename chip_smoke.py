@@ -53,7 +53,7 @@ present. Phases, each printed with its result and time:
   9. the CLI in process on enwik-like 2^24 bytes: `run --verify`, `bench`
      and `crosscheck` of the doubling, dc3 and bstar engines, `queries`,
      and `crosscheck --trace` of the three engines on the GPU and on the
-     CPU, whose trace files must be byte-identical; `global` refused;
+     CPU, whose trace files must be byte-identical;
  10. the fuzzer on the card: 40 iterations of the three engines over the
      engines, partitioned and transforms targets, 10 with `--idx64`, and
      every file of tests/corpus/; then the inverse BWT's walk probe,
@@ -71,10 +71,25 @@ present. Phases, each printed with its result and time:
      5) launches, and the 7- and 10-plane sorts timed at 2^26 and 2^28
      beside the chained `torch.sort` and the bytes bound; bstar on 2^20
      bytes of `(b"a" * 200 + b"b") * 3`, which runs its 35-plane extension
-     stage, equal to the oracle's SA. Phases 9 and 12 print the seconds of
-     each command or step.
+     stage, equal to the oracle's SA;
+ 13. the exact global suffix array over four shards of the one card:
+     `build_global(text, make_mesh(devices=[cuda] * 4))` on phase 3's text,
+     its SA equal to phase 3's element for element, its sharded `verify()`
+     passing and rejecting the state with one rank corrupted, with the
+     radix sort's launches, the plain sort's calls (none), host syncs,
+     peak memory, rounds, the bytes the collectives moved against the comm
+     model, and the wall of two warm builds; phase 5's LCS needles in both
+     text modes equal to the flat index's answers, `sa_search_batch` and
+     `sa_simplesearch` equal to the oracle's; at 2^20 on eight shards
+     (`b"ab" * 2^19`, all-equal bytes, enwik-like text) each equal to
+     `oracle.build`, with compaction and the merge-split fallback entered;
+     `scaling.measure(2^24)` at 1, 2, 4, 8 shards of the card in both
+     modes; `cli crosscheck --engines doubling,global` on 2^24 bytes, and
+     `--trace` of the global engine on 64 KiB on the GPU and the CPU,
+     byte-identical; `fuzz --targets global`, also with `--idx64`.
+Phases 9, 12 and 13 print the seconds of each command or step.
 Phases 7 to 10 each zero the sort kernels' launch counts first and need
-the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 and 12
+the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 to 13
 need the same of every build and sort they time.
 
 Every kernel's entry in the report carries `bound_ms`, the least time the
@@ -945,10 +960,6 @@ def phase9_cli() -> dict:
                 say(f"phase 9: the GPU and CPU {engine} traces are "
                     f"byte-identical ({len(gpu)} B, {gpu.count(b':: ')} "
                     f"labels) and end in the oracle's SA")
-            os.chdir(tmp)
-            rc = cli(["crosscheck", path, "--engines", "global"])
-            check(rc != 0, "cli crosscheck --engines global was not refused")
-            say(f"phase 9: crosscheck --engines global refused, return {rc}")
         finally:
             os.chdir(home)
     say(f"phase 9: seconds by command: {json.dumps(steps)}")
@@ -1241,6 +1252,277 @@ def phase12_wide(text_np, sa_host, card: str) -> dict:
     return report
 
 
+class PlainSortCalls:
+    """Counts the calls of `plain_sort` (the CPU route of `device_sort`)
+    while it is entered."""
+
+    def __enter__(self):
+        from stringsearch_torch.ops import bitonic
+
+        self.calls = 0
+        self._plain = bitonic.plain_sort
+
+        def counted(operands, num_keys=1):
+            self.calls += 1
+            return self._plain(operands, num_keys)
+
+        bitonic.plain_sort = counted
+        return self
+
+    def __exit__(self, *exc):
+        from stringsearch_torch.ops import bitonic
+
+        bitonic.plain_sort = self._plain
+
+
+def _expected_traffic(g) -> int:
+    """The bytes a shard sends in g's build by the comm model, for the
+    rounds that ran (full-width and compacted)."""
+    from stringsearch_torch.parallel.comm_model import (
+        compact_round_bytes_per_device, global_build_comm)
+
+    full = global_build_comm(g.n, g.num_shards, depth=g.depth, fan=g.fan,
+                             rounds=g.rounds_executed).total_bytes
+    return full + g.compact_rounds_executed * compact_round_bytes_per_device(
+        g.num_shards, g.chunk_len, g.fan)
+
+
+def phase13_global(text_np, sa_host, lcs_needles, full_lens,
+                   card: str) -> dict:
+    """The exact global SA on four shards of the one card, and the rest of
+    the multi-device layer's surface."""
+    import tempfile
+    import torch
+    from stringsearch_torch import NotSorted, oracle
+    from stringsearch_torch.harness import fuzz, scaling
+    from stringsearch_torch.harness.cli import main as cli
+    from stringsearch_torch.harness.corpus import enwik_like
+    from stringsearch_torch.harness.profile_build import _syncs
+    from stringsearch_torch.parallel import collectives, distsort, global_sa
+    from stringsearch_torch.parallel.comm_model import global_build_comm
+    from stringsearch_torch.parallel.global_sa import build_global
+    from stringsearch_torch.parallel.mesh import make_mesh
+
+    steps = {}
+    t_step = [time.perf_counter()]
+
+    def step(what):
+        now = time.perf_counter()
+        steps[what] = round(now - t_step[0], 4)
+        t_step[0] = now
+
+    n = len(text_np)
+    shards = 4
+    cuda = torch.device("cuda", 0)
+    mesh = make_mesh(devices=[cuda] * shards)
+    text = torch.from_numpy(text_np.copy()).to(cuda)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_traffic()
+    distsort.fallbacks.clear()
+    global_sa.compact_fallbacks = 0
+    built = []
+    with SortLaunches("the global build") as count, PlainSortCalls() as plain:
+        t0 = time.perf_counter()
+        syncs = _syncs(lambda: built.append(build_global(text, mesh)))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    g = built.pop()
+    peak = torch.cuda.max_memory_allocated()
+    launches = count.radix
+    moved = collectives.bulk_bytes_per_shard(shards)
+    fell_back = dict(distsort.fallbacks)
+    compact_fell_back = global_sa.compact_fallbacks
+    check(plain.calls == 0, f"the global build called the plain sort "
+                            f"{plain.calls} times")
+    check(all(s.device == cuda for s in g._sa_sharded + g.rank),
+          "a shard of the global build left the card")
+    step("the first build")
+    check(np.array_equal(g.suffix_array(), sa_host),
+          "the global SA differs from phase 3's oracle-checked SA")
+    step("SA fetched and compared with phase 3's")
+    t0 = time.perf_counter()
+    g.verify()
+    verify_s = time.perf_counter() - t0
+    good = g.rank[1]
+    g.rank[1] = good.clone()
+    g.rank[1][5] = g.rank[1][6]
+    try:
+        g.verify()
+        caught = False
+    except NotSorted as e:
+        caught = "permutation" in str(e)
+    g.rank[1] = good
+    check(caught, "the sharded verify accepted a corrupted rank")
+    step("verify, and its catch of a corrupted rank")
+
+    report = g.comm_report()
+    model = global_build_comm(n, shards, depth=g.depth, fan=g.fan,
+                              rounds=g.rounds_run)
+    check(report == model, "comm_report() differs from global_build_comm")
+    expected = _expected_traffic(g)
+    say(f"phase 13: global build n=2^{LOG2N} on {shards} shards of one card: "
+        f"{first_s:.4f} s, radix sort launches {launches}, plain sort "
+        f"calls {plain.calls}, host syncs {syncs}, peak CUDA memory {peak} B "
+        f"of which {held} B held before, rounds_run {g.rounds_run} "
+        f"(ran {g.rounds_executed}), compact_rounds_run "
+        f"{g.compact_rounds_run} (ran {g.compact_rounds_executed}), "
+        f"fallbacks {fell_back} / compacted {compact_fell_back}; SA equal to "
+        f"phase 3's, sharded verify {verify_s:.4f} s [{card}]")
+    say(f"phase 13: bytes each shard sent (ppermute + all_to_all): {moved}; "
+        f"comm model for the rounds that ran {expected}; comm_report() "
+        f"{report.total_bytes} for rounds_run {report.rounds} (initial "
+        f"{report.initial_bytes}, per round {report.per_round_bytes})")
+    if not fell_back and not compact_fell_back:
+        check(max(moved) == expected,
+              "the collectives moved other bytes than the comm model counts")
+
+    walls = []
+    for _ in range(2):
+        del g
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = build_global(text, mesh)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    say(f"phase 13: two warm global builds {walls[0]:.4f}, {walls[1]:.4f} s "
+        f"({n / min(walls):.1f} B/s at the faster) [{card}]")
+    step("two warm builds")
+
+    queries = {}
+    for mode in ("replicated", "sharded"):
+        t0 = time.perf_counter()
+        res = g.longest_substring_match_batch(lcs_needles, text_mode=mode)
+        queries[f"lcs_{mode}_s"] = time.perf_counter() - t0
+        for nd, r, want in zip(lcs_needles, res, full_lens):
+            check(r.len == want and r.as_bytes() == nd[:r.len],
+                  f"global LCS ({mode}) differs from the flat index")
+    rng = np.random.default_rng(13)
+    exact = []
+    for i in range(64):
+        m = int(rng.integers(1, 40))
+        s = int(rng.integers(0, n - m))
+        exact.append(text_np[s:s + m].tobytes() if i % 4 else
+                     rng.integers(0, 256, m, dtype=np.uint8).tobytes())
+    exact.append(b"e")
+    want = [oracle.search(text_np, nd, sa_host) for nd in exact]
+    for mode in ("replicated", "sharded"):
+        t0 = time.perf_counter()
+        got = g.sa_search_batch(exact, text_mode=mode)
+        queries[f"search_{mode}_s"] = time.perf_counter() - t0
+        check(got == want, f"global sa_search ({mode}) differs from the "
+                           f"oracle")
+        for c in (0, 32, 101, 255):
+            check(g.sa_simplesearch(c, mode)
+                  == oracle.simplesearch(text_np, c, sa_host),
+                  f"global simplesearch ({mode}) differs on byte {c}")
+    say(f"phase 13: {len(lcs_needles)} LCS answers equal to the flat "
+        f"index's and {len(exact)} exact searches and 4 simplesearch bytes "
+        f"equal to the oracle's, both text modes; seconds "
+        f"{json.dumps({k: round(v, 4) for k, v in queries.items()})}")
+    del g, text
+    torch.cuda.empty_cache()
+    step("queries in both text modes")
+
+    small = {}
+    distsort.fallbacks.clear()
+    global_sa.compact_fallbacks = 0
+    mesh8 = make_mesh(devices=[cuda] * 8)
+    compacted = 0
+    for name, data in (("ab*2^19", b"ab" * (1 << 19)),
+                       ("all-equal 2^20", bytes([7]) * (1 << 20)),
+                       ("enwik_like(2^20)", enwik_like(1 << 20))):
+        with SortLaunches(f"phase 13: {name} on 8 shards") as count:
+            t0 = time.perf_counter()
+            g8 = build_global(data, mesh8)
+            wall = time.perf_counter() - t0
+        check(np.array_equal(g8.suffix_array(), oracle.build(data)),
+              f"the 8-shard global SA of {name} differs from the oracle")
+        g8.verify()
+        compacted += g8.compact_rounds_run
+        small[name] = {"wall_s": wall, "launches": count.radix,
+                       "rounds_run": g8.rounds_run,
+                       "compact_rounds_run": g8.compact_rounds_run}
+        say(f"phase 13: {name} on 8 shards: {wall:.4f} s, radix sort "
+            f"launches {count.radix}, rounds_run {g8.rounds_run}, "
+            f"compact_rounds_run {g8.compact_rounds_run}; equal to "
+            f"oracle.build, verified")
+        del g8
+    say(f"phase 13: merge-split fallbacks {dict(distsort.fallbacks)}, "
+        f"compacted-round fallbacks {global_sa.compact_fallbacks}")
+    check(compacted > 0, "no 2^20 input entered the compacted rounds")
+    check(sum(distsort.fallbacks.values()) > 0,
+          "no 2^20 input entered the merge-split fallback")
+    small["fallbacks"] = dict(distsort.fallbacks)
+    small["compact_fallbacks"] = global_sa.compact_fallbacks
+    step("2^20 on eight shards")
+
+    scale = {}
+    for mode in ("global", "partitioned"):
+        rows = scaling.measure(1 << 24, reps=2, devices=[cuda] * 8,
+                               mode=mode)
+        scale[mode] = [{"shards": k, "s": dt, "bytes_per_s": bps,
+                        "devices": ndev} for k, dt, bps, _rep, ndev in rows]
+        say(f"phase 13: scaling.measure(2^24, {mode}), k shards sharing one "
+            f"card (not a scaling result): " + ", ".join(
+                f"k={k} {dt:.4f} s" for k, dt, *_rest in rows))
+    step("scaling.measure at 2^24")
+
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "enwik24.bin")
+        with open(path, "wb") as f:
+            f.write(enwik_like(1 << 24))
+        try:
+            os.chdir(tmp)
+            rc = cli(["crosscheck", path, "--engines", "doubling,global"])
+            check(rc == 0, f"cli crosscheck --engines doubling,global "
+                           f"returned {rc}")
+            step("cli crosscheck --engines doubling,global at 2^24")
+            traces = {}
+            for where, device in (("gpu", []), ("cpu", ["--device", "cpu"])):
+                work = os.path.join(tmp, where)
+                os.mkdir(work)
+                os.chdir(work)
+                rc = cli(["crosscheck", path, "64k", "--trace", "--engines",
+                          "global", *device])
+                check(rc == 0, f"cli crosscheck --trace global ({where}) "
+                               f"returned {rc}")
+                with open("crosscheck/global", "rb") as f:
+                    traces[where] = f.read()
+            check(traces["gpu"] == traces["cpu"],
+                  "the GPU global trace differs from the CPU trace")
+            say(f"phase 13: the GPU and CPU global traces are byte-identical "
+                f"({len(traces['gpu'])} B, "
+                f"{traces['gpu'].count(b':: ')} labels)")
+            step("crosscheck --trace global on 64k, GPU and CPU")
+        finally:
+            os.chdir(home)
+
+    for extra in ([], ["--idx64"]):
+        t0 = time.perf_counter()
+        rc = fuzz.main(["--iters", "6", "--max-len", "2048", "--seed", "7",
+                        "--targets", "global", *extra])
+        check(rc == 0, f"fuzz --targets global {' '.join(extra)} "
+                       f"returned {rc}")
+        say(f"phase 13: 6 fuzz iterations of the global target"
+            f"{''.join(' ' + e for e in extra)} clean in "
+            f"{time.perf_counter() - t0:.2f} s")
+    step("fuzz --targets global")
+    say(f"phase 13: seconds by step: {json.dumps(steps)}")
+    return {"n": n, "shards": shards, "first_s": first_s,
+            "warm_walls_s": walls, "launches": launches,
+            "plain_sort_calls": plain.calls, "host_syncs": syncs,
+            "peak_bytes": peak, "held_bytes": held,
+            "rounds_run": report.rounds, "comm_bytes": report.total_bytes,
+            "bytes_moved": moved, "fallbacks": fell_back,
+            "compact_fallbacks": compact_fell_back, "queries": queries,
+            "eight_shards_2_20": small, "scaling_2_24": scale,
+            "step_s": steps}
+
+
 def main() -> int:
     # One card: the first that CUDA would use, and the only one torch sees.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -1307,6 +1589,10 @@ def main() -> int:
         t0 = time.perf_counter()
         wide_report = phase12_wide(text_np, sa_host, card)
         say(f"phase 12: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        global_report = phase13_global(text_np, sa_host, lcs_needles,
+                                       lcs_lens, card)
+        say(f"phase 13: passed in {time.perf_counter() - t0:.2f} s")
         del text_np, sa_host
     except SmokeFailure as e:
         say(f"FAIL: {e}")
@@ -1371,7 +1657,8 @@ def main() -> int:
                    phase_launches=phase_launches, cli_step_s=cli_steps,
                    bwt=bwt_report,
                    partitioned=partitioned_report, fuzz=fuzz_report,
-                   engines=engines_report, fault_repair=wide_report),
+                   engines=engines_report, fault_repair=wide_report,
+                   global_build=global_report),
         sort_entry("bitonic_sort", "stringsearch_torch/ops/csrc/bitonic.cu",
                    build["bitonic_launches"]),
         *radix_kernels]}))

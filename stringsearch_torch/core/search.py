@@ -5,6 +5,10 @@ batched over needles: every step gathers a fixed-width window of the text
 at each lane's probe and decides all lanes with one vectorized compare, for
 ceil(log2(n+1)) + 1 steps. The steps are a host loop of device ops with no
 synchronisation; each batch makes one device-to-host fetch at the end.
+The two binary searches are generators (`lcs_steps`, `sa_search_steps`)
+that yield their probe positions, so several searches can be driven in
+lock step (`run_in_lockstep`): the global index's shards share each
+probe's window fetch. `lcs_loop` and `sa_search_loop` drive one.
 """
 
 from __future__ import annotations
@@ -43,19 +47,44 @@ def _needle_batch_to_windows(needles: Sequence[BytesLike]) -> tuple[np.ndarray, 
     return out, lens, width
 
 
-def lcs_loop(windows_at, n_sa: int, needles: torch.Tensor, steps: int):
-    """Batched LCS binary search with a pluggable suffix-window fetch.
+def run_in_lockstep(searches, probe):
+    """Drive binary searches written as generators (`lcs_steps`,
+    `sa_search_steps`) in lock step.
 
-    windows_at(pos [B]) -> (text_start [B], window [B, M] int32 with
-    PAST_TEXT_END sentinels) for SA positions `pos` (callers clamp).
+    Each generator yields the SA positions it probes and is sent back what
+    `probe` answered for them; `probe` takes the list of every search's
+    positions and returns the list of answers, so one call can serve all
+    of them at once (the sharded text mode of parallel/global_sa.py makes
+    one collective of it). Returns the list of the searches' results.
     """
+    searches = list(searches)
+    positions = [next(s) for s in searches]
+    while True:
+        answers = probe(positions)
+        positions, results = [], []
+        for search, answer in zip(searches, answers):
+            try:
+                positions.append(search.send(answer))
+            except StopIteration as stop:
+                results.append(stop.value)
+        if results:
+            if positions:
+                raise RuntimeError("searches of one batch fell out of step")
+            return results
+
+
+def lcs_steps(n_sa: int, needles: torch.Tensor, steps: int):
+    """The batched LCS binary search as a generator: it yields SA positions
+    `pos` [B] and is sent (text_start [B], window [B, M] int32 with
+    PAST_TEXT_END sentinels) for them (callers clamp); it returns
+    (start, length)."""
     b = needles.shape[0]
     dev = needles.device
     lo = torch.zeros((b,), dtype=torch.int32, device=dev)
     hi = torch.full((b,), n_sa, dtype=torch.int32, device=dev)
     for _ in range(steps):
         mid = torch.div(lo + hi, 2, rounding_mode="floor")
-        _, suff = windows_at(mid)
+        _, suff = yield mid
         less = cmp.lex_less(suff, needles)  # suffix < needle
         active = lo < hi
         lo = torch.where(active & less, mid + 1, lo)
@@ -63,8 +92,8 @@ def lcs_loop(windows_at, n_sa: int, needles: torch.Tensor, steps: int):
 
     # the longest common prefix is at a neighbour of the insertion point
     left, right = lo - 1, lo
-    start_l, win_l = windows_at(left)
-    start_r, win_r = windows_at(right)
+    start_l, win_l = yield left
+    start_r, win_r = yield right
     lcp_l = cmp.prefix_match_len(win_l, needles)
     lcp_r = cmp.prefix_match_len(win_r, needles)
     lcp_l = torch.where(left >= 0, lcp_l, -1)
@@ -73,6 +102,16 @@ def lcs_loop(windows_at, n_sa: int, needles: torch.Tensor, steps: int):
     start = torch.where(take_left, start_l, start_r)
     length = torch.where(take_left, lcp_l, lcp_r).clamp(min=0)
     return start, length
+
+
+def lcs_loop(windows_at, n_sa: int, needles: torch.Tensor, steps: int):
+    """Batched LCS binary search with a pluggable suffix-window fetch.
+
+    windows_at(pos [B]) -> (text_start [B], window [B, M] int32 with
+    PAST_TEXT_END sentinels) for SA positions `pos` (callers clamp).
+    """
+    return run_in_lockstep([lcs_steps(n_sa, needles, steps)],
+                           lambda pos: [windows_at(pos[0])])[0]
 
 
 def lcs_kernel(text, sa, needles, steps: int):
@@ -92,6 +131,33 @@ def lcs_kernel(text, sa, needles, steps: int):
     return lcs_loop(windows_at, n_sa, needles, steps)
 
 
+def sa_search_steps(n_sa: int, b: int, steps: int, device):
+    """The batched double binary search as a generator: it yields SA
+    positions `pos` [B] and is sent the int32 [B] three-way compare of the
+    suffix at each against its lane's needle; it returns (lo [B], up [B]),
+    the lower and upper insertion points: count = up - lo, leftmost
+    occurrence slot = lo."""
+    lo_l = torch.zeros((b,), dtype=torch.int32, device=device)
+    hi_l = torch.full((b,), n_sa, dtype=torch.int32, device=device)
+    lo_u = torch.zeros((b,), dtype=torch.int32, device=device)
+    hi_u = torch.full((b,), n_sa, dtype=torch.int32, device=device)
+    for _ in range(steps):
+        mid_l = torch.div(lo_l + hi_l, 2, rounding_mode="floor")
+        c_l = yield mid_l
+        act = lo_l < hi_l
+        less = c_l < 0
+        lo_l = torch.where(act & less, mid_l + 1, lo_l)
+        hi_l = torch.where(act & ~less, mid_l, hi_l)
+
+        mid_u = torch.div(lo_u + hi_u, 2, rounding_mode="floor")
+        c_u = yield mid_u
+        act = lo_u < hi_u
+        leq = c_u <= 0
+        lo_u = torch.where(act & leq, mid_u + 1, lo_u)
+        hi_u = torch.where(act & ~leq, mid_u, hi_u)
+    return lo_l, lo_u
+
+
 def sa_search_loop(cmp_at, n_sa: int, b: int, steps: int, device):
     """Batched double binary search with a pluggable probe compare.
 
@@ -100,25 +166,8 @@ def sa_search_loop(cmp_at, n_sa: int, b: int, steps: int, device):
     the lower and upper insertion points: count = up - lo, leftmost
     occurrence slot = lo.
     """
-    lo_l = torch.zeros((b,), dtype=torch.int32, device=device)
-    hi_l = torch.full((b,), n_sa, dtype=torch.int32, device=device)
-    lo_u = torch.zeros((b,), dtype=torch.int32, device=device)
-    hi_u = torch.full((b,), n_sa, dtype=torch.int32, device=device)
-    for _ in range(steps):
-        mid_l = torch.div(lo_l + hi_l, 2, rounding_mode="floor")
-        c_l = cmp_at(mid_l)
-        act = lo_l < hi_l
-        less = c_l < 0
-        lo_l = torch.where(act & less, mid_l + 1, lo_l)
-        hi_l = torch.where(act & ~less, mid_l, hi_l)
-
-        mid_u = torch.div(lo_u + hi_u, 2, rounding_mode="floor")
-        c_u = cmp_at(mid_u)
-        act = lo_u < hi_u
-        leq = c_u <= 0
-        lo_u = torch.where(act & leq, mid_u + 1, lo_u)
-        hi_u = torch.where(act & ~leq, mid_u, hi_u)
-    return lo_l, lo_u
+    return run_in_lockstep([sa_search_steps(n_sa, b, steps, device)],
+                           lambda pos: [cmp_at(pos[0])])[0]
 
 
 def needle_mask_cmp(needles, lens):

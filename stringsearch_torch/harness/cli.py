@@ -15,11 +15,15 @@ one's output:
 
 Length caps accept k/m/g suffixes.
 
+`crosscheck --engines global` builds the exact global SA
+(parallel/global_sa.py) over every device of the platform, rounded down
+to a power of two: every visible GPU, or the one CPU device under
+`--device cpu`; `--trace` writes crosscheck/global.
+
 What differs: `--device` takes `cpu` or `cuda`. With no `--device` the
 commands run on the GPU, and fail with return code 2 when there is none;
-they never carry on on the CPU by themselves. `crosscheck --engines
-global` is refused: the multi-device layer is not ported (ROADMAP.md §1,
-multi-device layer). The XLA compilation cache has no counterpart.
+they never carry on on the CPU by themselves. The XLA compilation cache
+has no counterpart.
 
     python -m stringsearch_torch.harness.cli crosscheck README.md --device cpu
 """
@@ -33,15 +37,12 @@ import time
 import numpy as np
 import torch
 
+from stringsearch_torch.harness.tracing import Tracer
 from stringsearch_torch.utils.sizes import (
     format_size,
     format_throughput,
     parse_size,
 )
-
-GLOBAL_REFUSED = ("the `global` engine is not ported: it needs the "
-                  "multi-device layer (ROADMAP.md §1, multi-device layer)")
-
 
 def resolve_device(device: str | None) -> str | None:
     """The device a harness command runs on: "cpu" when asked for, else
@@ -54,6 +55,14 @@ def resolve_device(device: str | None) -> str | None:
               "plain PyTorch versions on the host", file=sys.stderr)
         return None
     return "cuda"
+
+
+def platform_devices(device: str) -> list:
+    """Every device of `device`'s platform: each visible GPU for "cuda",
+    the one CPU device for "cpu"."""
+    if device == "cpu":
+        return [torch.device("cpu")]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _load_input(path: str, length: str | None) -> bytes:
@@ -171,12 +180,8 @@ def command_queries(args) -> int:
 def command_crosscheck(args) -> int:
     from stringsearch_torch import oracle
     from stringsearch_torch.engines import get_engine
-    from stringsearch_torch.harness.tracing import Tracer
 
     names = args.engines.split(",") if args.engines else ["doubling"]
-    if "global" in names:
-        print(f"error: {GLOBAL_REFUSED}", file=sys.stderr)
-        return 2
     data = _load_input(args.input, args.length)
     print(f"crosscheck on {format_size(len(data))}")
 
@@ -192,7 +197,9 @@ def command_crosscheck(args) -> int:
     wrote_oracle_trace = False
     for name in names:
         traced = _traced_engine(name) if args.trace else None
-        if traced is not None:
+        if name == "global":
+            sa = _build_global_index(data, args.trace, args.device)
+        elif traced is not None:
             with Tracer(f"crosscheck/{name}") as tr:
                 sa = traced(data, tr, device=args.device)
         else:
@@ -232,6 +239,27 @@ def _traced_engine(name: str):
     else:
         return None
     return sort_traced
+
+
+def _build_global_index(data: bytes, trace: bool, device: str):
+    """Crosscheck entry of the distributed global engine: built over a
+    mesh of every device of the platform (rounded down to a power of
+    two), as a single-device SuffixArray on the first of them."""
+    from stringsearch_torch.parallel.global_sa import build_global
+    from stringsearch_torch.parallel.mesh import make_mesh
+
+    devs = platform_devices(device)
+    p = len(devs)
+    while p & (p - 1):
+        p -= 1
+    mesh = make_mesh(devices=devs[:p])
+    if trace:
+        with Tracer("crosscheck/global") as tr:
+            g = build_global(data, mesh, tracer=tr)
+            tr.dump("SA final", g.suffix_array())
+    else:
+        g = build_global(data, mesh)
+    return g.to_suffix_array_index()
 
 
 def main(argv=None) -> int:

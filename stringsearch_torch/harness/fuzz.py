@@ -11,6 +11,10 @@ selected targets:
                  the full index: genuine matches, never longer than the
                  optimum, equal to it when an optimal occurrence lies
                  inside one partition; in-partition sa_search counts;
+  * global       the distributed exact global SA over eight shards on
+                 the fuzz device, byte-exact against the oracle, its
+                 sharded verify, and distributed sa_search slot parity;
+                 (depth, fan, compaction) drawn from the input bytes;
   * transforms   BWT == oracle BWT, unbwt round trips (device and
                  cross-implementation), sa_search/simplesearch parity on
                  sampled and random needles.
@@ -23,10 +27,9 @@ Failures are shrunk by greedy bisection and written to
 fuzz-crashes/crash-<sha1>; commit survivors under tests/corpus/.
 
 `--idx64` also builds every input with the doubling engine at
-`idx=torch.int64` and compares it with the oracle. Not ported, and refused
-with a message and return code 2: the `global` target (the multi-device
-layer). The XLA compilation cache and its environment variables have no
-counterpart.
+`idx=torch.int64` and compares it with the oracle, and builds the global
+target at `idx=torch.int64`. The XLA compilation cache and its
+environment variables have no counterpart.
 
 Run: python -m stringsearch_torch.harness.fuzz --iters 200 --device cpu
 """
@@ -51,9 +54,9 @@ _FIXED_LENS = (
     2047, 2048,
 )
 
-TARGETS = ("engines", "partitioned", "transforms")
-GLOBAL_REFUSED = ("the `global` target is not ported: it needs the "
-                  "multi-device layer (ROADMAP.md §1, multi-device layer)")
+TARGETS = ("engines", "partitioned", "global", "transforms")
+# the global target's shard count: the JAX fuzzer's eight virtual devices
+GLOBAL_SHARDS = 8
 
 
 def _length_pool(rng: np.random.Generator, max_len: int, extra: int = 32):
@@ -197,6 +200,56 @@ def _check_partitioned(data: bytes, device=None) -> str | None:
     return None
 
 
+def _make_mesh(device):
+    """GLOBAL_SHARDS shards, all on the fuzz device."""
+    import torch
+
+    from stringsearch_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[torch.device(device)] * GLOBAL_SHARDS)
+
+
+def _check_global(data: bytes, mesh, idx64: bool = False) -> str | None:
+    """Distributed exact global SA against the oracle, and its sharded
+    self-verify.
+
+    (depth, fan, compaction) are drawn from the input bytes like the
+    needles, so crash artifacts replay deterministically.
+    """
+    import torch
+
+    from stringsearch_torch import oracle
+    from stringsearch_torch.core.types import NotSorted
+    from stringsearch_torch.parallel.global_sa import build_global
+
+    rng = _input_rng(data + b"/cfg")
+    depth = int(rng.choice([4, 8, 16]))
+    fan = int(rng.choice([2, 3, 4]))
+    compaction = bool(rng.integers(0, 2))
+    idx = torch.int64 if idx64 else torch.int32
+    want = oracle.build(data)
+    g = build_global(data, mesh, idx=idx, depth=depth, fan=fan,
+                     compaction=compaction)
+    if not np.array_equal(g.suffix_array(), want):
+        return f"global SA mismatch vs oracle (depth={depth} fan={fan})"
+    try:
+        g.verify()  # the distributed checker, no full array on a shard
+    except NotSorted as e:
+        return (f"global sharded verify rejected a correct SA "
+                f"(depth={depth} fan={fan}): {e}")
+    # distributed sa_search: slot-exact against the oracle's flat search
+    if len(data) >= 2:
+        s = int(rng.integers(0, len(data) - 1))
+        e = min(len(data), s + int(rng.integers(1, 16)))
+        for nd in (data[s:e], b"\x00"):
+            wc, wl = oracle.search(data, nd, want)
+            gc, gl = g.sa_search(nd)
+            if gc != wc or (gc and gl != wl):
+                return (f"global sa_search mismatch for {nd[:16]!r}: "
+                        f"({gc},{gl}) vs ({wc},{wl})")
+    return None
+
+
 def _check_transforms(data: bytes, device=None) -> str | None:
     """BWT/unBWT and search-path differential checks against the oracle:
 
@@ -256,6 +309,10 @@ def _check(data: bytes, engines, targets, device=None,
         err = _check_partitioned(data, device)
         if err:
             return err
+    if "global" in targets:
+        err = _check_global(data, _make_mesh(device), idx64)
+        if err:
+            return err
     if "transforms" in targets:
         err = _check_transforms(data, device)
         if err:
@@ -292,7 +349,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--targets",
         default="engines",
-        help="comma list: engines,partitioned,transforms",
+        help="comma list: engines,partitioned,global,transforms",
     )
     ap.add_argument("--device", default=None, choices=[None, "cpu", "cuda"],
                     help="default: cuda, and an error without a GPU")
@@ -304,13 +361,11 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--idx64", action="store_true",
                     help="also build with the doubling engine at "
-                         "idx=torch.int64 and compare with the oracle")
+                         "idx=torch.int64 and compare with the oracle; "
+                         "the global target builds at idx=torch.int64")
     args = ap.parse_args(argv)
 
     targets = set(args.targets.split(","))
-    if "global" in targets:
-        print(f"error: {GLOBAL_REFUSED}", file=sys.stderr)
-        return 2
     if not targets <= set(TARGETS):
         print(f"error: unknown targets {sorted(targets - set(TARGETS))} "
               f"(have: {', '.join(TARGETS)})", file=sys.stderr)

@@ -20,13 +20,15 @@ cost is many small sorts. Then, at 2^28 on the radix sort, the same sort
 times and kernel sums for what is built on the flat build: the partitioned
 build (four partitions in one build), `bwt_from_sa` and `_unbwt_kernel`.
 Last, the same for the dc3 and bstar engines' builds at 2^28, with the
-radix sort's launches and the host syncs of one build. Needs a CUDA
-device.
+radix sort's launches and the host syncs of one build. Then the exact
+global build (`parallel/global_sa.py:build_global`) at 2^28 on four
+shards of the one card, with the same numbers. Needs a CUDA device.
 
     python -m stringsearch_torch.harness.profile_build transforms
     python -m stringsearch_torch.harness.profile_build engines
+    python -m stringsearch_torch.harness.profile_build global
 
-run the last two parts alone.
+run the last three parts alone.
 """
 
 from __future__ import annotations
@@ -205,6 +207,21 @@ def profile_transforms(log2n: int = 28) -> None:
             lambda: bwt._unbwt_kernel(u, pidx, rounds), modules=(bwt,))
 
 
+def profile_global(log2n: int = 28, shards: int = 4) -> None:
+    """The exact global build at 2^log2n on `shards` shards of one card:
+    every shard's sorts on the radix sort, one after another."""
+    from stringsearch_torch.parallel import distsort, gather, global_sa
+    from stringsearch_torch.parallel.mesh import make_mesh
+
+    n = 1 << log2n
+    text = torch.from_numpy(
+        np.frombuffer(enwik_like(n), dtype=np.uint8).copy()).to("cuda")
+    mesh = make_mesh(devices=[torch.device("cuda")] * shards)
+    profile(f"2^{log2n} global build, {shards} shards of one card",
+            lambda: global_sa.build_global(text, mesh),
+            modules=(distsort, gather, global_sa), nbytes=n)
+
+
 def compaction_walls() -> None:
     """Build walls of the inputs whose cost is many small sorts: the two
     adversarial texts one by one, then the whole set that `chip_smoke.py`
@@ -263,6 +280,9 @@ def main() -> None:
     if sys.argv[1:] == ["engines"]:
         profile_engines()
         return
+    if sys.argv[1:] == ["global"]:
+        profile_global()
+        return
     bitonic.load_library()
     for log2n in SIZES:
         text = torch.from_numpy(
@@ -279,6 +299,7 @@ def main() -> None:
     compaction_walls()
     profile_transforms()
     profile_engines()
+    profile_global()
 
 
 if __name__ == "__main__":

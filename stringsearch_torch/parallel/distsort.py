@@ -1,0 +1,332 @@
+"""Distributed multi-key sort over the shards of a mesh — bitonic
+merge-split, and the all_to_all routes that replace it where they can.
+
+Counterpart of stringsearch_tpu/parallel/distsort.py, function for
+function:
+
+- `sharded_sort`: each shard sorts its [L] chunk locally; the bitonic
+  network over P chunk slots then runs comparator stages, each one an
+  exchange of chunks with a partner (`ppermute`), a merge of the two
+  sorted chunks (one 2L sort) and a keep of the lower or upper half. P is
+  a power of two, and every stage moves exactly L elements per operand per
+  shard: no capacity to overflow.
+- `redistribute_permutation`: routes elements to shard gidx // L, slot
+  gidx % L, with one `all_to_all` at a static per-pair capacity, when gidx
+  is a permutation; the merge-split sort is its fallback.
+- `rank_interval_sort`: a global sort whose primary key is a head-slot
+  rank, with one `all_to_all`, a local sort and one boundary `ppermute`;
+  the merge-split sort is its fallback.
+
+What differs from the JAX package, and why:
+  * A sharded array is a list of per-shard tensors (`collectives.py`),
+    and the functions take a tuple of such lists, one per operand, where
+    the JAX functions take a tuple of local arrays inside `shard_map`.
+  * `jax.axis_index` is the shard's Python index, and a branch on it is a
+    host branch per shard.
+  * `lax.cond` on a replicated flag is a host branch: one sync for the
+    overflow flag of each fast path, and one for the boundary check of
+    `rank_interval_sort`, which reads every shard's valid count to slice
+    the boundary repair on the host.
+  * Every local sort is `ops.bitonic.device_sort`, which is stable (on
+    CUDA the hand-written radix sort). `lax.sort` is not, so where the keys
+    tie (`redistribute_permutation`'s and `rank_interval_sort`'s routing
+    sorts by destination) the buffers may be laid out differently from
+    JAX's; what the keys determine (the routed contents once re-sorted,
+    the results) is the same.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Sequence
+
+import torch
+
+from stringsearch_torch.ops.bitonic import device_sort
+from stringsearch_torch.parallel import collectives as coll
+
+_I32 = torch.int32
+
+#: fast paths that fell back to the merge-split sort in this process, by
+#: cause: "redistribute" (a pair over capacity), "rank_interval" (the
+#: same) and "rank_interval_boundary" (an overhang over capacity)
+fallbacks = Counter()
+
+
+def _local(operands, me: int) -> tuple:
+    """Shard `me`'s tensor of every operand."""
+    return tuple(op[me] for op in operands)
+
+
+def _by_operand(per_shard) -> tuple:
+    """Per-shard tuples of operands -> a tuple of per-shard lists."""
+    return tuple(list(col) for col in zip(*per_shard))
+
+
+def host_flag(flags) -> bool:
+    """The host value of a replicated flag (one sync)."""
+    return bool(flags[0])
+
+
+def _seg_rank(dest_s: torch.Tensor) -> torch.Tensor:
+    """Rank of each element inside its run of equal sorted destinations."""
+    i = torch.arange(dest_s.shape[0], device=dest_s.device)
+    return i - torch.searchsorted(dest_s, dest_s, side="left")
+
+
+def _merge_halves(mine, theirs, mine_first: bool, keep_low: bool,
+                  num_keys: int):
+    """Merge one shard's sorted tuple of [L] arrays with its partner's;
+    keep one half.
+
+    Both partners MUST materialize the identical merged list, or ties that
+    straddle the split point get duplicated on one side and dropped on the
+    other. `mine_first` pins a canonical concatenation order — the
+    lower-indexed shard's chunk first on both sides.
+    """
+    length = mine[0].shape[0]
+    cat = tuple(torch.cat([a, b] if mine_first else [b, a])
+                for a, b in zip(mine, theirs))
+    merged = device_sort(cat, num_keys)
+    del cat
+    half = slice(0, length) if keep_low else slice(length, 2 * length)
+    # a copy of the half, so the 2L buffer goes now
+    return tuple(m[half].clone() for m in merged)
+
+
+def sharded_sort(operands: Sequence, num_keys: int = 1) -> tuple:
+    """Globally sort sharded arrays by their first `num_keys` operands.
+
+    Each operand is a list of per-shard [L] tensors, the shards of a global
+    [P*L] array. After the call, the concatenation of the shards is sorted
+    lexicographically by the key operands; value operands are permuted
+    alongside. Make keys unique (a position operand as the last key) when
+    the order of equal key tuples matters.
+    """
+    operands = tuple(list(op) for op in operands)
+    p = len(operands[0])
+    operands = _by_operand([device_sort(_local(operands, me), num_keys)
+                            for me in range(p)])
+    if p == 1:
+        return operands
+    if p & (p - 1):
+        raise ValueError(f"sharded_sort needs a power-of-two axis, got {p}")
+
+    k = 2
+    while k <= p:
+        j = k // 2
+        while j >= 1:
+            perm = [(i, i ^ j) for i in range(p)]
+            theirs = tuple(coll.ppermute(op, perm) for op in operands)
+            merged = []
+            for me in range(p):
+                partner = me ^ j
+                # ascending region of the bitonic network
+                ascending = (me & k) == 0
+                mine_first = me < partner
+                merged.append(_merge_halves(
+                    _local(operands, me), _local(theirs, me), mine_first,
+                    mine_first == ascending, num_keys))
+            del theirs
+            operands = _by_operand(merged)
+            del merged
+            j //= 2
+        k *= 2
+    return operands
+
+
+def redistribute_cap(p: int, chunk_elems: int, cap_factor: int = 2) -> int:
+    """Static per-(source, dest) capacity of the all_to_all routes.
+
+    Shared with parallel/comm_model.py, so the model's volume arithmetic
+    cannot drift from the implementation."""
+    return int(min(chunk_elems, cap_factor * (-(-chunk_elems // p))))
+
+
+def _send_buffers(routed, k: int, p: int, cap: int, fill) -> list:
+    """[P, cap] send buffers of operand k: slot (dest, rank) of each shard's
+    routed elements; `routed[me]` = (dest_s, rank, operands sorted by
+    dest)."""
+    out = []
+    for dest_s, rank, ops_s in routed:
+        send = torch.full((p, cap), fill, dtype=ops_s[k].dtype,
+                          device=ops_s[k].device)
+        send[dest_s, rank] = ops_s[k]
+        out.append(send)
+    return out
+
+
+def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
+    """Route elements to shard `gidx // L`, slot `gidx % L` — the cheap
+    replacement for `sharded_sort((gidx, *operands), num_keys=1)` when
+    `gidx` is a permutation of [0, P*L).
+
+    One `all_to_all` moves about cap_factor * L elements per operand per
+    shard, where merge-split moves S(P) * L. The send buffers have the
+    static capacity cap = cap_factor * ceil(L/P) per pair; if ANY pair
+    overflows (already-sorted text routes each shard's elements to itself),
+    the replicated flag sends every shard to the merge-split fallback.
+
+    `gidx` is a list of per-shard tensors, `operands` a tuple of such
+    lists. Returns the operands in destination order (slot gidx % L).
+    """
+    gidx = list(gidx)
+    operands = tuple(list(op) for op in operands)
+    p = len(gidx)
+    length = gidx[0].shape[0]
+    if p == 1:
+        srt = device_sort((gidx[0],) + _local(operands, 0), 1)
+        return tuple([x] for x in srt[1:])
+    cap = redistribute_cap(p, length, cap_factor)
+    routed, over = [], []
+    for me in range(p):
+        dest = torch.div(gidx[me], length, rounding_mode="floor").to(_I32)
+        arrs = device_sort((dest, gidx[me]) + _local(operands, me), 2)
+        rank = _seg_rank(arrs[0])
+        over.append((rank >= cap).any().to(_I32))
+        routed.append((arrs[0], rank, arrs[1:]))
+    if host_flag(coll.psum(over)):
+        del routed
+        fallbacks["redistribute"] += 1
+        return sharded_sort((gidx,) + operands, num_keys=1)[1:]
+
+    recv_g = coll.all_to_all(_send_buffers(routed, 0, p, cap, -1))
+    # receivers scatter into [L + 1]: slot L takes the empty slots' writes
+    off = [torch.where(r >= 0, r % length, length).reshape(-1)
+           for r in recv_g]
+    del recv_g
+    outs = []
+    for k in range(1, 1 + len(operands)):
+        recv = coll.all_to_all(_send_buffers(routed, k, p, cap, 0))
+        col = []
+        for me in range(p):
+            out = recv[me].new_zeros((length + 1,))
+            out[off[me]] = recv[me].reshape(-1)
+            col.append(out[:length])
+        del recv
+        outs.append(col)
+    return tuple(outs)
+
+
+def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
+                       ) -> tuple:
+    """Global sort whose primary key is a HEAD-SLOT RANK — one all_to_all,
+    a local sort and one boundary ppermute instead of the merge-split
+    network's S(P) full-chunk exchanges.
+
+    Precondition: operand 0 holds head-slot ranks of the CURRENT global
+    order — the value r of an element is the global slot of its tie
+    group's first member, so its final sorted slot lies in [r, r +
+    group size). Routing to shard r // L sends every element to the shard
+    where its group STARTS; after a local sort, shard s's elements occupy
+    the global slots [s*L + overhang_s, (s+1)*L + overhang_{s+1}), and ONE
+    neighbour ppermute of the right-aligned tail repairs the boundaries.
+
+    Fast-path capacities (static; the replicated overflow flags fall back
+    to `sharded_sort`): the per-pair all_to_all capacity
+    `redistribute_cap`, and the same cap for the boundary shift (a tie
+    group larger than cap straddling a shard boundary overflows it).
+
+    Returns the operands globally sorted by the first `num_keys` (ties in
+    any order unless the key tuple is unique).
+    """
+    operands = tuple(list(op) for op in operands)
+    p = len(operands[0])
+    length = operands[0][0].shape[0]
+    if p == 1:
+        return tuple([x] for x in device_sort(_local(operands, 0),
+                                              num_keys))
+    if p == 2:
+        # S(2) = 1 merge-split stage moves L per operand; the interval
+        # route's cap clamps to L at P=2, so its all_to_all + boundary
+        # repair would move ~3L — merge-split wins below P=4
+        # (parallel/comm_model.py has the same branch)
+        return sharded_sort(operands, num_keys=num_keys)
+    sent = torch.iinfo(operands[0][0].dtype).max
+    cap = redistribute_cap(p, length, cap_factor)
+    routed, over = [], []
+    for me in range(p):
+        rank = operands[0][me]
+        dest = torch.div(rank, length, rounding_mode="floor").clamp(
+            0, p - 1).to(_I32)
+        srt = device_sort((dest,) + _local(operands, me), 1)
+        seg_rank = _seg_rank(srt[0])
+        over.append((seg_rank >= cap).any().to(_I32))
+        routed.append((srt[0], seg_rank, srt[1:]))
+    if host_flag(coll.psum(over)):
+        del routed
+        fallbacks["rank_interval"] += 1
+        return sharded_sort(operands, num_keys=num_keys)
+
+    # receive buffer = p * cap rows (every pair at full capacity); pads
+    # carry rank `sent` and sort last
+    recvs = [[r.reshape(-1) for r in coll.all_to_all(
+        _send_buffers(routed, k, p, cap, sent if k == 0 else 0))]
+        for k in range(len(operands))]
+    del routed
+    srt2 = []
+    for me in range(p):
+        srt2.append(device_sort(_local(recvs, me), max(num_keys, 1)))
+        for col in recvs:
+            col[me] = None
+    del recvs
+    n_valid = [(s[0] != sent).sum() for s in srt2]
+    prefix = exclusive_shard_offset(n_valid)
+    # every shard's valid count and head deficit, read at once
+    nv, pre = zip(*coll.all_gather(
+        [torch.stack([a, b]) for a, b in zip(n_valid, prefix)])[0].tolist())
+    oh = [pre[me] - me * length for me in range(p)]  # my head deficit
+    spill = [pre[me] + nv[me] - (me + 1) * length  # my tail spill
+             for me in range(p)]
+    # shard p-1 has spill 0 by construction (prefix + valid == n)
+    if any(not (0 <= x <= cap) for x in oh + spill):
+        del srt2
+        fallbacks["rank_interval_boundary"] += 1
+        return sharded_sort(operands, num_keys=num_keys)
+
+    perm = [(t, (t + 1) % p) for t in range(p)]
+    outs = []
+    for k in range(len(operands)):
+        # the right-aligned tail [n_valid - cap, n_valid) of the valid
+        # region, zero-filled in front; receivers read its last oh slots
+        tails = []
+        for me in range(p):
+            op2 = srt2[me][k]
+            tail = op2[max(nv[me] - cap, 0):nv[me]]
+            if tail.shape[0] < cap:
+                tail = torch.cat([tail.new_zeros((cap - tail.shape[0],)),
+                                  tail])
+            tails.append(tail)
+        heads = coll.ppermute(tails, perm)
+        # shard 0's head is empty (oh == 0 there): the global order starts
+        # on it
+        outs.append([torch.cat([heads[me][cap - oh[me]:],
+                                srt2[me][k][:length - oh[me]]])
+                     for me in range(p)])
+        del tails, heads
+    return tuple(outs)
+
+
+def exclusive_shard_offset(local_sum) -> list:
+    """Sum of `local_sum` over all lower-indexed shards (exclusive scan).
+
+    A one-hot all-gather of the scalar partials and a masked sum, as in the
+    JAX package. `local_sum` is a list of per-shard 0-d tensors.
+    """
+    p = len(local_sum)
+    partials = coll.all_gather(list(local_sum))  # [P] on every shard
+    return [partials[me][:me].sum(dtype=partials[me].dtype)
+            for me in range(p)]
+
+
+def shift_in_from_prev(x_last, fill) -> list:
+    """Bring the previous shard's boundary value in (for neighbour diffs).
+
+    x_last: each shard's last element (a 0-d or [k] tensor); returns the
+    previous shard's, with `fill` on shard 0.
+    """
+    p = len(x_last)
+    prev = coll.ppermute(list(x_last), [(i, (i + 1) % p) for i in range(p)],
+                         boundary=True)
+    prev[0] = torch.full_like(prev[0], fill)
+    return prev

@@ -2,8 +2,8 @@
 
 Counterparts of tests/test_cli.py with `--device cpu`, the trace files of
 `crosscheck --trace` byte for byte against the JAX CLI's on the same input
-files, and the refusals: `global`, and a run without `--device` on a
-machine with no GPU.
+files (the global engine's too), and the refusal of a run without
+`--device` on a machine with no GPU.
 """
 
 import os
@@ -165,12 +165,55 @@ def test_cli_queries(sample_file, capsys):
 
 
 def test_cli_refuses_global(sample_file, capsys, tmp_path, monkeypatch):
+    """`crosscheck --engines global` was refused while the multi-device
+    layer was not ported; it now builds the exact global SA (over the one
+    CPU device under `--device cpu`), verifies it and matches the oracle,
+    untraced and traced."""
     monkeypatch.chdir(tmp_path)
     assert main(["crosscheck", sample_file, "--device", "cpu", "--engines",
-                 "doubling,global"]) == 2
+                 "doubling,global"]) == 0
     captured = capsys.readouterr()
-    assert "multi-device layer" in captured.err and "ROADMAP" in captured.err
-    assert captured.out == "" and not os.path.exists("crosscheck")
+    assert "global: verify OK, byte-exact match vs oracle" in captured.out
+    assert "doubling: verify OK, byte-exact match vs oracle" in captured.out
+    assert captured.err == "" and not os.path.exists("crosscheck")
+    assert main(["crosscheck", sample_file, "--device", "cpu", "--engines",
+                 "global", "--trace"]) == 0
+    assert sorted(os.listdir("crosscheck")) == ["global", "oracle"]
+    trace = open("crosscheck/global").read()
+    assert trace.startswith(":: global engine n=3000 shards=1 ")
+    assert trace.split(":: SA final")[-1] == \
+        open("crosscheck/oracle").read().split(":: SA final")[-1]
+
+
+@pytest.mark.parametrize("name", ["enwik", "alpha2", "periodic"])
+def test_crosscheck_global_trace_equals_the_jax_cli(name, tmp_path, capsys,
+                                                    monkeypatch):
+    """The global engine's trace (every block's ranks) is byte-identical
+    to the JAX CLI's on the same file, both over one device: the port's
+    CLI under `--device cpu` builds on the one CPU device; the JAX CLI on
+    every CPU device it sees, here held to the first."""
+    import jax
+
+    from stringsearch_tpu.harness.cli import main as jmain
+
+    devices = jax.devices
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a, **k: devices(*a, **k)[:1])
+    path = _input_files(tmp_path)[name]
+    outs = {}
+    for who, entry in (("torch", main), ("jax", jmain)):
+        work = tmp_path / who
+        work.mkdir()
+        monkeypatch.chdir(work)
+        assert entry(["crosscheck", path, "--trace", "--device", "cpu",
+                      "--engines", "doubling,global"]) == 0
+        outs[who] = capsys.readouterr().out
+    assert outs["torch"] == outs["jax"]
+    for trace in ("oracle", "doubling", "global"):
+        got = (tmp_path / "torch" / "crosscheck" / trace).read_bytes()
+        want = (tmp_path / "jax" / "crosscheck" / trace).read_bytes()
+        assert got == want, trace
+    assert b":: block rounds=" in got or name == "enwik"
 
 
 @pytest.mark.parametrize("argv", [["crosscheck"], ["run", "--verify"],

@@ -3,7 +3,8 @@
 The input generators are byte-identical for the same seed, so a seed or a
 crash file found with one package replays on the other; the port's checks
 run clean on the CPU and on every file of tests/corpus/; a planted failure
-is reported, shrunk and replayed; what is not ported is refused.
+is reported, shrunk and replayed; the global target runs on eight shards
+of the fuzz device; unknown targets are refused.
 """
 
 import hashlib
@@ -131,9 +132,10 @@ def test_planted_failure_is_found_shrunk_and_replayed(
     (["--targets", "engines,nothing"], "unknown targets"),
 ])
 def test_fuzz_refuses_what_is_not_ported(argv, word, capsys):
-    """`global` and unknown targets are refused; `--idx64`, refused until
-    the int64 index mode was ported, now runs it."""
-    if argv == ["--idx64"]:
+    """Unknown targets are refused. `--idx64` (the int64 index mode) and
+    the `global` target (the multi-device layer), each refused until it
+    was ported, now run."""
+    if word != "unknown targets":
         assert fuzz.main(["--iters", "3", "--seed", "4", "--device", "cpu",
                           *argv]) == 0
         captured = capsys.readouterr()
@@ -143,8 +145,49 @@ def test_fuzz_refuses_what_is_not_ported(argv, word, capsys):
     assert fuzz.main(["--iters", "1", "--device", "cpu", *argv]) == 2
     captured = capsys.readouterr()
     assert word in captured.err and captured.out == ""
-    if word != "unknown targets":
-        assert "ROADMAP.md" in captured.err
+
+
+@pytest.mark.parametrize("idx64", [False, True])
+def test_global_target_runs_clean(idx64, capsys):
+    """`--targets global` builds every input on eight shards of the fuzz
+    device, at int64 indexes with `--idx64`, with no failure."""
+    argv = ["--iters", "12", "--seed", "11", "--device", "cpu",
+            "--targets", "global"]
+    assert fuzz.main(argv + (["--idx64"] if idx64 else [])) == 0
+    out = capsys.readouterr().out
+    assert "targets=['global']" in out
+    assert "done: 12 iterations, 0 failures" in out
+
+
+def test_global_check_draws_the_jax_fuzzers_config(monkeypatch):
+    """(depth, fan, compaction) come from the input bytes by the JAX
+    fuzzer's draws, and a wrong SA is reported, not passed."""
+    from stringsearch_torch.parallel import global_sa
+
+    data = b"global fuzz target " * 9
+    seen = {}
+    real = global_sa.build_global
+
+    def spy(text, mesh, **kw):
+        seen.update(kw, shards=mesh.shape["parts"])
+        return real(text, mesh, **kw)
+
+    monkeypatch.setattr(global_sa, "build_global", spy)
+    assert fuzz._check_global(data, fuzz._make_mesh("cpu")) is None
+    rng = fuzz._input_rng(data + b"/cfg")
+    assert (seen["depth"], seen["fan"], seen["compaction"]) == (
+        int(rng.choice([4, 8, 16])), int(rng.choice([2, 3, 4])),
+        bool(rng.integers(0, 2)))
+    assert seen["shards"] == fuzz.GLOBAL_SHARDS == 8
+
+    def wrong(text, mesh, **kw):
+        g = real(text, mesh, **kw)
+        g._sa_host = g.suffix_array()[::-1].copy()
+        return g
+
+    monkeypatch.setattr(global_sa, "build_global", wrong)
+    assert "global SA mismatch" in fuzz._check_global(
+        data, fuzz._make_mesh("cpu"))
 
 
 def test_fuzz_without_a_card_returns_2(capsys, monkeypatch):
