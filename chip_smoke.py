@@ -86,10 +86,23 @@ present. Phases, each printed with its result and time:
      `scaling.measure(2^24)` at 1, 2, 4, 8 shards of the card in both
      modes; `cli crosscheck --engines doubling,global` on 2^24 bytes, and
      `--trace` of the global engine on 64 KiB on the GPU and the CPU,
-     byte-identical; `fuzz --targets global`, also with `--idx64`.
+     byte-identical; `fuzz --targets global`, also with `--idx64`;
+ 14. the global build across two processes: `multihost.run_selftest(
+     nproc=2, devs_per_proc=2, device="cuda", backend="gloo")` on phase 3's
+     text, each process holding two of the four shards on the one card
+     (gloo, staged through the host: NCCL refuses two ranks on one card,
+     so the NCCL route is not run, and a line says so). Phase 3's SA goes
+     to a temporary `.npy`; each process holds its SA shards against the
+     matching slice of it element for element, runs the sharded `verify()`
+     (and its catch of a corrupted rank), times a cold and a warm build
+     with its radix sort launches > 0 and its plain sort calls 0, and
+     prints its wall, the bytes that crossed processes, the transport's
+     seconds, the bytes per shard against the comm model and its peak
+     memory. The processes' exact searches and single-byte counts must
+     equal the oracle's, and every answer must agree across them.
 Phases 9, 12 and 13 print the seconds of each command or step.
 Phases 7 to 10 each zero the sort kernels' launch counts first and need
-the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 to 13
+the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 to 14
 need the same of every build and sort they time.
 
 Every kernel's entry in the report carries `bound_ms`, the least time the
@@ -1252,41 +1265,6 @@ def phase12_wide(text_np, sa_host, card: str) -> dict:
     return report
 
 
-class PlainSortCalls:
-    """Counts the calls of `plain_sort` (the CPU route of `device_sort`)
-    while it is entered."""
-
-    def __enter__(self):
-        from stringsearch_torch.ops import bitonic
-
-        self.calls = 0
-        self._plain = bitonic.plain_sort
-
-        def counted(operands, num_keys=1):
-            self.calls += 1
-            return self._plain(operands, num_keys)
-
-        bitonic.plain_sort = counted
-        return self
-
-    def __exit__(self, *exc):
-        from stringsearch_torch.ops import bitonic
-
-        bitonic.plain_sort = self._plain
-
-
-def _expected_traffic(g) -> int:
-    """The bytes a shard sends in g's build by the comm model, for the
-    rounds that ran (full-width and compacted)."""
-    from stringsearch_torch.parallel.comm_model import (
-        compact_round_bytes_per_device, global_build_comm)
-
-    full = global_build_comm(g.n, g.num_shards, depth=g.depth, fan=g.fan,
-                             rounds=g.rounds_executed).total_bytes
-    return full + g.compact_rounds_executed * compact_round_bytes_per_device(
-        g.num_shards, g.chunk_len, g.fan)
-
-
 def phase13_global(text_np, sa_host, lcs_needles, full_lens,
                    card: str) -> dict:
     """The exact global SA on four shards of the one card, and the rest of
@@ -1299,7 +1277,9 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     from stringsearch_torch.harness.corpus import enwik_like
     from stringsearch_torch.harness.profile_build import _syncs
     from stringsearch_torch.parallel import collectives, distsort, global_sa
-    from stringsearch_torch.parallel.comm_model import global_build_comm
+    from stringsearch_torch.ops.bitonic import PlainSortCalls
+    from stringsearch_torch.parallel.comm_model import (executed_bytes,
+                                                         global_build_comm)
     from stringsearch_torch.parallel.global_sa import build_global
     from stringsearch_torch.parallel.mesh import make_mesh
 
@@ -1362,7 +1342,7 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     model = global_build_comm(n, shards, depth=g.depth, fan=g.fan,
                               rounds=g.rounds_run)
     check(report == model, "comm_report() differs from global_build_comm")
-    expected = _expected_traffic(g)
+    expected = executed_bytes(g)
     say(f"phase 13: global build n=2^{LOG2N} on {shards} shards of one card: "
         f"{first_s:.4f} s, radix sort launches {launches}, plain sort "
         f"calls {plain.calls}, host syncs {syncs}, peak CUDA memory {peak} B "
@@ -1523,6 +1503,72 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
             "step_s": steps}
 
 
+def phase14_multihost(text_np, sa_host, card: str) -> dict:
+    """The global build across two processes, each holding two of the four
+    shards of phase 3's build on the one card."""
+    import torch
+    from stringsearch_torch import oracle
+    from stringsearch_torch.parallel import multihost
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        reports = multihost.run_selftest(
+            nproc=2, devs_per_proc=2, device="cuda", backend="gloo",
+            text=text_np, want=sa_host, builds=2, timeout=600.0)
+    except (RuntimeError, TimeoutError) as e:
+        raise SmokeFailure(f"phase 14: {e}") from e
+    wall = time.perf_counter() - t0
+    check([r["parts"] for r in reports] == [[0, 1], [2, 3]],
+          "phase 14: the processes do not hold two shards each")
+    for r in reports:
+        check(r["radix_launches"] > 0 and r["plain_sort_calls"] == 0,
+              f"phase 14: process {r['pid']} launched "
+              f"{r['radix_launches']} radix sorts, called the plain sort "
+              f"{r['plain_sort_calls']} times")
+        if not r["fallbacks"] and not r["compact_fallbacks"]:
+            check(max(r["bulk_bytes_per_shard"]) == r["expected_bytes"],
+                  "phase 14: the collectives moved other bytes than the "
+                  "comm model counts")
+        say(f"phase 14: process {r['pid']}, shards {r['parts']}: build "
+            f"cold {r['walls_s'][0]:.4f} s, warm {r['walls_s'][1]:.4f} s; "
+            f"crossed {r['crossed']} B, transport {r['transport_s']:.4f} s; "
+            f"radix sort launches {r['radix_launches']}, peak CUDA memory "
+            f"{r['peak_bytes']} B; rounds_run {r['rounds_run']} (ran "
+            f"{r['rounds_executed']}); verify {r['verify_s']:.4f} s [{card}]")
+    first = reports[0]
+    answers = [k for k in first if k.startswith(("lcs_", "search_",
+                                                 "simple_", "sharded_lcs",
+                                                 "sa_sha1"))]
+    check(all(r[k] == first[k] for r in reports for k in answers),
+          "phase 14: the processes' answers differ")
+    needles = multihost.selftest_needles(text_np)
+    want = [list(oracle.search(text_np, nd, sa_host)) for nd in needles]
+    simple = [list(oracle.simplesearch(text_np, c, sa_host))
+              for c in multihost.SELFTEST_BYTES]
+    for mode in ("replicated", "sharded"):
+        check(first[f"search_{mode}"] == want,
+              f"phase 14: sa_search_batch ({mode}) differs from the oracle")
+        check(first[f"simple_{mode}"] == simple,
+              f"phase 14: sa_simplesearch ({mode}) differs from the oracle")
+    say(f"phase 14: bytes each shard sent (ppermute + all_to_all): "
+        f"{first['bulk_bytes_per_shard']}, comm model for the rounds that "
+        f"ran {first['expected_bytes']}; {len(needles)} exact searches and "
+        f"{len(simple)} single-byte counts equal to the oracle's in both "
+        f"text modes, every answer equal across the processes; "
+        f"run_selftest {wall:.2f} s")
+    say("phase 14: the NCCL route was not run: one card, and NCCL refuses "
+        "two ranks on one device (gloo staged through the host instead)")
+    keep = ("parts", "walls_s", "crossed", "transport_s", "radix_launches",
+            "plain_sort_calls", "peak_bytes", "bulk_bytes_per_shard",
+            "expected_bytes", "rounds_run", "rounds_executed",
+            "compact_rounds_run", "fallbacks", "compact_fallbacks",
+            "verify_s")
+    return {"n": len(text_np), "processes": len(reports),
+            "backend": "gloo", "nccl_run": False, "selftest_s": wall,
+            "per_process": [{k: r[k] for k in keep} for r in reports]}
+
+
 def main() -> int:
     # One card: the first that CUDA would use, and the only one torch sees.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -1593,6 +1639,9 @@ def main() -> int:
         global_report = phase13_global(text_np, sa_host, lcs_needles,
                                        lcs_lens, card)
         say(f"phase 13: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        multihost_report = phase14_multihost(text_np, sa_host, card)
+        say(f"phase 14: passed in {time.perf_counter() - t0:.2f} s")
         del text_np, sa_host
     except SmokeFailure as e:
         say(f"FAIL: {e}")
@@ -1658,7 +1707,8 @@ def main() -> int:
                    bwt=bwt_report,
                    partitioned=partitioned_report, fuzz=fuzz_report,
                    engines=engines_report, fault_repair=wide_report,
-                   global_build=global_report),
+                   global_build=global_report,
+                   multihost=multihost_report),
         sort_entry("bitonic_sort", "stringsearch_torch/ops/csrc/bitonic.cu",
                    build["bitonic_launches"]),
         *radix_kernels]}))

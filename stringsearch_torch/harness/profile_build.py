@@ -22,13 +22,19 @@ build (four partitions in one build), `bwt_from_sa` and `_unbwt_kernel`.
 Last, the same for the dc3 and bstar engines' builds at 2^28, with the
 radix sort's launches and the host syncs of one build. Then the exact
 global build (`parallel/global_sa.py:build_global`) at 2^28 on four
-shards of the one card, with the same numbers. Needs a CUDA device.
+shards of the one card, with the same numbers. Last, the same global
+build across processes (`parallel/multihost.py:run_selftest`): two
+processes of two shards each on gloo, and, where every process has a
+card of its own, on nccl too, with one process a card; each process
+prints its build walls, the bytes that crossed processes, the transport's
+seconds and its peak memory. Needs a CUDA device.
 
     python -m stringsearch_torch.harness.profile_build transforms
     python -m stringsearch_torch.harness.profile_build engines
     python -m stringsearch_torch.harness.profile_build global
+    python -m stringsearch_torch.harness.profile_build multihost
 
-run the last three parts alone.
+run the last four parts alone.
 """
 
 from __future__ import annotations
@@ -222,6 +228,42 @@ def profile_global(log2n: int = 28, shards: int = 4) -> None:
             modules=(distsort, gather, global_sa), nbytes=n)
 
 
+def profile_multihost(log2n: int = 28, shards: int = 4) -> None:
+    """The global build at 2^log2n across processes (process i on card i
+    modulo the cards visible): 2 x shards/2 on gloo, which runs on one
+    card; where `shards` cards are visible, 2 x shards/2 on nccl and
+    shards x 1 on nccl and on gloo. Each layout runs three builds; every
+    process checks its SA shards against the flat build's."""
+    from stringsearch_torch.parallel import multihost
+
+    n = 1 << log2n
+    text = np.frombuffer(enwik_like(n), dtype=np.uint8)
+    flat = st.build_suffix_array(text, device="cuda")
+    want = flat.sa.cpu().numpy()
+    del flat
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    layouts = [("gloo", 2, shards // 2)]
+    if cards >= shards:
+        layouts += [("nccl", 2, shards // 2), ("nccl", shards, 1),
+                    ("gloo", shards, 1)]
+    for backend, nproc, per in layouts:
+        t0 = time.perf_counter()
+        reports = multihost.run_selftest(
+            nproc=nproc, devs_per_proc=per, device="cuda", backend=backend,
+            text=text, want=want, builds=3, timeout=900.0)
+        warm = [statistics.median(r["walls_s"][1:]) for r in reports]
+        print(f"2^{log2n} global build across processes, {backend}, "
+              f"{nproc} x {per} shards on {min(nproc, cards)} card(s): "
+              f"warm wall {max(warm):.4f} s (median of builds 2-3, slowest "
+              f"process), crossed {[r['crossed'] for r in reports]} B, "
+              f"transport {[round(r['transport_s'], 4) for r in reports]} "
+              f"s, radix launches "
+              f"{[r['radix_launches'] for r in reports]}, peak "
+              f"{[r['peak_bytes'] for r in reports]} B; run_selftest "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def compaction_walls() -> None:
     """Build walls of the inputs whose cost is many small sorts: the two
     adversarial texts one by one, then the whole set that `chip_smoke.py`
@@ -283,6 +325,9 @@ def main() -> None:
     if sys.argv[1:] == ["global"]:
         profile_global()
         return
+    if sys.argv[1:] == ["multihost"]:
+        profile_multihost()
+        return
     bitonic.load_library()
     for log2n in SIZES:
         text = torch.from_numpy(
@@ -300,6 +345,7 @@ def main() -> None:
     profile_transforms()
     profile_engines()
     profile_global()
+    profile_multihost()
 
 
 if __name__ == "__main__":

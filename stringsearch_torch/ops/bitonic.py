@@ -187,6 +187,28 @@ def wide_sort(operands, num_keys: int, narrow) -> tuple:
     return tuple(op[perm] for op in operands)
 
 
+class PlainSortCalls:
+    """Counts the calls of `plain_sort` (the CPU route of `device_sort`)
+    while it is entered: a CUDA path that must never take it is held to
+    `calls == 0`."""
+
+    def __enter__(self):
+        global plain_sort
+        self.calls = 0
+        self._plain = plain_sort
+
+        def counted(operands, num_keys=1):
+            self.calls += 1
+            return self._plain(operands, num_keys)
+
+        plain_sort = counted
+        return self
+
+    def __exit__(self, *exc):
+        global plain_sort
+        plain_sort = self._plain
+
+
 def device_sort(operands, num_keys: int = 1) -> tuple:
     """`lax.sort`-shaped sort of 1-D operands by their first `num_keys`.
 

@@ -202,3 +202,16 @@ def report_for(gsa) -> CommReport:
         gsa.n, gsa.num_shards, depth=gsa.depth, fan=gsa.fan,
         rounds=gsa.rounds_run, idx_width=idx_width,
     )
+
+
+def executed_bytes(gsa) -> int:
+    """The bytes each shard of a built int32 GlobalSuffixArray sends by the
+    model, for the rounds that ran: `rounds_executed` full-width and
+    `compact_rounds_executed` compacted rounds. With no fallback taken it
+    equals the most any shard's collectives counted
+    (`collectives.bulk_bytes_per_shard`)."""
+    full = global_build_comm(gsa.n, gsa.num_shards, depth=gsa.depth,
+                             fan=gsa.fan, rounds=gsa.rounds_executed)
+    return full.total_bytes + gsa.compact_rounds_executed * \
+        compact_round_bytes_per_device(gsa.num_shards, gsa.chunk_len,
+                                       gsa.fan)

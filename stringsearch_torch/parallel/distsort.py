@@ -21,6 +21,8 @@ What differs from the JAX package, and why:
   * A sharded array is a list of per-shard tensors (`collectives.py`),
     and the functions take a tuple of such lists, one per operand, where
     the JAX functions take a tuple of local arrays inside `shard_map`.
+    Across processes a list holds this process's shards (None elsewhere),
+    and every shard-map loop runs over them (`coll.local_parts`).
   * `jax.axis_index` is the shard's Python index, and a branch on it is a
     host branch per shard.
   * `lax.cond` on a replicated flag is a host branch: one sync for the
@@ -59,13 +61,17 @@ def _local(operands, me: int) -> tuple:
 
 
 def _by_operand(per_shard) -> tuple:
-    """Per-shard tuples of operands -> a tuple of per-shard lists."""
-    return tuple(list(col) for col in zip(*per_shard))
+    """Per-shard tuples of operands (None for a remote shard) -> a tuple of
+    per-shard lists."""
+    width = len(coll.first_local(per_shard))
+    return tuple([None if t is None else t[k] for t in per_shard]
+                 for k in range(width))
 
 
 def host_flag(flags) -> bool:
-    """The host value of a replicated flag (one sync)."""
-    return bool(flags[0])
+    """The host value of a replicated flag (one sync), read at a local
+    shard."""
+    return bool(coll.first_local(flags))
 
 
 def _seg_rank(dest_s: torch.Tensor) -> torch.Tensor:
@@ -105,8 +111,8 @@ def sharded_sort(operands: Sequence, num_keys: int = 1) -> tuple:
     """
     operands = tuple(list(op) for op in operands)
     p = len(operands[0])
-    operands = _by_operand([device_sort(_local(operands, me), num_keys)
-                            for me in range(p)])
+    operands = _by_operand(coll.each(operands[0], lambda me: device_sort(
+        _local(operands, me), num_keys)))
     if p == 1:
         return operands
     if p & (p - 1):
@@ -118,15 +124,15 @@ def sharded_sort(operands: Sequence, num_keys: int = 1) -> tuple:
         while j >= 1:
             perm = [(i, i ^ j) for i in range(p)]
             theirs = tuple(coll.ppermute(op, perm) for op in operands)
-            merged = []
-            for me in range(p):
+            merged = [None] * p
+            for me in coll.local_parts(operands[0]):
                 partner = me ^ j
                 # ascending region of the bitonic network
                 ascending = (me & k) == 0
                 mine_first = me < partner
-                merged.append(_merge_halves(
+                merged[me] = _merge_halves(
                     _local(operands, me), _local(theirs, me), mine_first,
-                    mine_first == ascending, num_keys))
+                    mine_first == ascending, num_keys)
             del theirs
             operands = _by_operand(merged)
             del merged
@@ -147,12 +153,13 @@ def _send_buffers(routed, k: int, p: int, cap: int, fill) -> list:
     """[P, cap] send buffers of operand k: slot (dest, rank) of each shard's
     routed elements; `routed[me]` = (dest_s, rank, operands sorted by
     dest)."""
-    out = []
-    for dest_s, rank, ops_s in routed:
+    out = [None] * len(routed)
+    for me in coll.local_parts(routed):
+        dest_s, rank, ops_s = routed[me]
         send = torch.full((p, cap), fill, dtype=ops_s[k].dtype,
                           device=ops_s[k].device)
         send[dest_s, rank] = ops_s[k]
-        out.append(send)
+        out[me] = send
     return out
 
 
@@ -173,18 +180,18 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
     gidx = list(gidx)
     operands = tuple(list(op) for op in operands)
     p = len(gidx)
-    length = gidx[0].shape[0]
+    length = coll.first_local(gidx).shape[0]
     if p == 1:
         srt = device_sort((gidx[0],) + _local(operands, 0), 1)
         return tuple([x] for x in srt[1:])
     cap = redistribute_cap(p, length, cap_factor)
-    routed, over = [], []
-    for me in range(p):
+    routed, over = [None] * p, [None] * p
+    for me in coll.local_parts(gidx):
         dest = torch.div(gidx[me], length, rounding_mode="floor").to(_I32)
         arrs = device_sort((dest, gidx[me]) + _local(operands, me), 2)
         rank = _seg_rank(arrs[0])
-        over.append((rank >= cap).any().to(_I32))
-        routed.append((arrs[0], rank, arrs[1:]))
+        over[me] = (rank >= cap).any().to(_I32)
+        routed[me] = (arrs[0], rank, arrs[1:])
     if host_flag(coll.psum(over)):
         del routed
         fallbacks["redistribute"] += 1
@@ -192,17 +199,17 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
 
     recv_g = coll.all_to_all(_send_buffers(routed, 0, p, cap, -1))
     # receivers scatter into [L + 1]: slot L takes the empty slots' writes
-    off = [torch.where(r >= 0, r % length, length).reshape(-1)
-           for r in recv_g]
+    off = coll.each(recv_g, lambda me: torch.where(
+        recv_g[me] >= 0, recv_g[me] % length, length).reshape(-1))
     del recv_g
     outs = []
     for k in range(1, 1 + len(operands)):
         recv = coll.all_to_all(_send_buffers(routed, k, p, cap, 0))
-        col = []
-        for me in range(p):
+        col = [None] * p
+        for me in coll.local_parts(recv):
             out = recv[me].new_zeros((length + 1,))
             out[off[me]] = recv[me].reshape(-1)
-            col.append(out[:length])
+            col[me] = out[:length]
         del recv
         outs.append(col)
     return tuple(outs)
@@ -232,7 +239,7 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
     """
     operands = tuple(list(op) for op in operands)
     p = len(operands[0])
-    length = operands[0][0].shape[0]
+    length = coll.first_local(operands[0]).shape[0]
     if p == 1:
         return tuple([x] for x in device_sort(_local(operands, 0),
                                               num_keys))
@@ -242,17 +249,17 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
         # repair would move ~3L — merge-split wins below P=4
         # (parallel/comm_model.py has the same branch)
         return sharded_sort(operands, num_keys=num_keys)
-    sent = torch.iinfo(operands[0][0].dtype).max
+    sent = torch.iinfo(coll.first_local(operands[0]).dtype).max
     cap = redistribute_cap(p, length, cap_factor)
-    routed, over = [], []
-    for me in range(p):
+    routed, over = [None] * p, [None] * p
+    for me in coll.local_parts(operands[0]):
         rank = operands[0][me]
         dest = torch.div(rank, length, rounding_mode="floor").clamp(
             0, p - 1).to(_I32)
         srt = device_sort((dest,) + _local(operands, me), 1)
         seg_rank = _seg_rank(srt[0])
-        over.append((seg_rank >= cap).any().to(_I32))
-        routed.append((srt[0], seg_rank, srt[1:]))
+        over[me] = (seg_rank >= cap).any().to(_I32)
+        routed[me] = (srt[0], seg_rank, srt[1:])
     if host_flag(coll.psum(over)):
         del routed
         fallbacks["rank_interval"] += 1
@@ -260,21 +267,24 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
 
     # receive buffer = p * cap rows (every pair at full capacity); pads
     # carry rank `sent` and sort last
-    recvs = [[r.reshape(-1) for r in coll.all_to_all(
-        _send_buffers(routed, k, p, cap, sent if k == 0 else 0))]
-        for k in range(len(operands))]
+    recvs = []
+    for k in range(len(operands)):
+        recv = coll.all_to_all(_send_buffers(routed, k, p, cap,
+                                             sent if k == 0 else 0))
+        recvs.append(coll.each(recv, lambda me: recv[me].reshape(-1)))
     del routed
-    srt2 = []
-    for me in range(p):
-        srt2.append(device_sort(_local(recvs, me), max(num_keys, 1)))
+    srt2 = [None] * p
+    for me in coll.local_parts(recvs[0]):
+        srt2[me] = device_sort(_local(recvs, me), max(num_keys, 1))
         for col in recvs:
             col[me] = None
     del recvs
-    n_valid = [(s[0] != sent).sum() for s in srt2]
+    n_valid = coll.each(srt2, lambda me: (srt2[me][0] != sent).sum())
     prefix = exclusive_shard_offset(n_valid)
     # every shard's valid count and head deficit, read at once
-    nv, pre = zip(*coll.all_gather(
-        [torch.stack([a, b]) for a, b in zip(n_valid, prefix)])[0].tolist())
+    nv, pre = zip(*coll.first_local(coll.all_gather(coll.each(
+        n_valid, lambda me: torch.stack([n_valid[me], prefix[me]])
+    ))).tolist())
     oh = [pre[me] - me * length for me in range(p)]  # my head deficit
     spill = [pre[me] + nv[me] - (me + 1) * length  # my tail spill
              for me in range(p)]
@@ -289,20 +299,19 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
     for k in range(len(operands)):
         # the right-aligned tail [n_valid - cap, n_valid) of the valid
         # region, zero-filled in front; receivers read its last oh slots
-        tails = []
-        for me in range(p):
+        tails = [None] * p
+        for me in coll.local_parts(srt2):
             op2 = srt2[me][k]
             tail = op2[max(nv[me] - cap, 0):nv[me]]
             if tail.shape[0] < cap:
                 tail = torch.cat([tail.new_zeros((cap - tail.shape[0],)),
                                   tail])
-            tails.append(tail)
+            tails[me] = tail
         heads = coll.ppermute(tails, perm)
         # shard 0's head is empty (oh == 0 there): the global order starts
         # on it
-        outs.append([torch.cat([heads[me][cap - oh[me]:],
-                                srt2[me][k][:length - oh[me]]])
-                     for me in range(p)])
+        outs.append(coll.each(srt2, lambda me: torch.cat(
+            [heads[me][cap - oh[me]:], srt2[me][k][:length - oh[me]]])))
         del tails, heads
     return tuple(outs)
 
@@ -313,10 +322,9 @@ def exclusive_shard_offset(local_sum) -> list:
     A one-hot all-gather of the scalar partials and a masked sum, as in the
     JAX package. `local_sum` is a list of per-shard 0-d tensors.
     """
-    p = len(local_sum)
     partials = coll.all_gather(list(local_sum))  # [P] on every shard
-    return [partials[me][:me].sum(dtype=partials[me].dtype)
-            for me in range(p)]
+    return coll.each(partials, lambda me: partials[me][:me].sum(
+        dtype=partials[me].dtype))
 
 
 def shift_in_from_prev(x_last, fill) -> list:
@@ -328,5 +336,6 @@ def shift_in_from_prev(x_last, fill) -> list:
     p = len(x_last)
     prev = coll.ppermute(list(x_last), [(i, (i + 1) % p) for i in range(p)],
                          boundary=True)
-    prev[0] = torch.full_like(prev[0], fill)
+    if prev[0] is not None:
+        prev[0] = torch.full_like(prev[0], fill)
     return prev

@@ -16,8 +16,9 @@ and every shard holds its own batch of global indices, with static shapes:
 Used by `GlobalSuffixArray`'s text-sharded queries (the binary search
 reads its text windows without a replicated text) and compacted rounds.
 
-As in `distsort.py`, a sharded array is a list of per-shard tensors, and
-the routing sort ties on the owner: the port's stable sort may lay the
+As in `distsort.py`, a sharded array is a list of per-shard tensors (this
+process's shards across processes, None elsewhere), and the routing sort
+ties on the owner: the port's stable sort may lay the
 buffers out differently from JAX's, with the same answers.
 """
 
@@ -35,9 +36,9 @@ _I32 = torch.int32
 def _route(values, idx, cap: int):
     """Per shard: (owner_s, rank, src_s, send [P, cap]) for `idx`."""
     p = len(values)
-    length = values[0].shape[0]
-    routed = []
-    for me in range(p):
+    length = coll.first_local(values).shape[0]
+    routed = [None] * p
+    for me in coll.local_parts(values):
         i = idx[me].clamp(0, p * length - 1)
         owner = torch.div(i, length, rounding_mode="floor").to(_I32)
         off = (i % length).to(_I32)
@@ -50,28 +51,27 @@ def _route(values, idx, cap: int):
         slot = rank.clamp(max=cap - 1)
         send = off_s.new_zeros((p, cap))
         send[owner_s, slot] = off_s
-        routed.append((owner_s, rank, slot, src_s, send))
+        routed[me] = (owner_s, rank, slot, src_s, send)
     return routed
 
 
 def _answer(values, routed, dtype) -> list:
     """Route the requests to their owners, answer, route the answers back
     and put them in request order."""
-    p = len(values)
-    recv = coll.all_to_all([r[4] for r in routed])
+    recv = coll.all_to_all(coll.each(routed, lambda me: routed[me][4]))
     # recv[s] = offsets requested BY shard s of my slice
-    answers = [values[me][recv[me].reshape(-1).clamp(
-        0, values[me].shape[0] - 1)].reshape(recv[me].shape)
-        for me in range(p)]
+    answers = coll.each(recv, lambda me: values[me][recv[me].reshape(
+        -1).clamp(0, values[me].shape[0] - 1)].reshape(recv[me].shape))
     del recv
     back = coll.all_to_all(answers)
-    out = []
-    for me, (owner_s, _rank, slot, src_s, _send) in enumerate(routed):
+    out = [None] * len(routed)
+    for me in coll.local_parts(routed):
+        owner_s, _rank, slot, src_s, _send = routed[me]
         # request src_s[j] was answered at back[owner_s[j], slot[j]]
         got = back[me][owner_s, slot]
         res = torch.zeros((src_s.shape[0],), dtype=dtype, device=got.device)
         res[src_s] = got
-        out.append(res)
+        out[me] = res
     return out
 
 
@@ -82,8 +82,9 @@ def sharded_gather(values, idx) -> list:
     [m] global indices (the same m on every shard), clamped into [0, P*L).
     Returns per-shard [m] tensors of values' dtype.
     """
-    m = idx[0].shape[0]
-    return _answer(values, _route(values, idx, m), values[0].dtype)
+    m = coll.first_local(idx).shape[0]
+    return _answer(values, _route(values, idx, m),
+                   coll.first_local(values).dtype)
 
 
 def sharded_gather_capped(values, idx, cap: int):
@@ -96,18 +97,21 @@ def sharded_gather_capped(values, idx, cap: int):
     callers must take their fallback.
     """
     routed = _route(values, idx, cap)
-    overflow = coll.psum([(r[1] >= cap).any().to(_I32) for r in routed])
-    return (_answer(values, routed, values[0].dtype),
-            [f > 0 for f in overflow])
+    overflow = coll.psum(coll.each(
+        routed, lambda me: (routed[me][1] >= cap).any().to(_I32)))
+    return (_answer(values, routed, coll.first_local(values).dtype),
+            coll.each(overflow, lambda me: overflow[me] > 0))
 
 
 def sharded_gather_windows(values, starts, width: int) -> list:
     """Fetch [B, width] windows values[start:start+width] from a sharded
     array (windows may span shard boundaries). Out-of-range reads clamp;
     callers mask with their own length logic."""
-    flat = []
-    for s in starts:
+    def window_index(me):
+        s = starts[me]
         offs = torch.arange(width, dtype=s.dtype, device=s.device)
-        flat.append((s[:, None] + offs[None, :]).reshape(-1).to(_I32))
-    out = sharded_gather(values, flat)
-    return [o.reshape(s.shape[0], width) for o, s in zip(out, starts)]
+        return (s[:, None] + offs[None, :]).reshape(-1).to(_I32)
+
+    out = sharded_gather(values, coll.each(starts, window_index))
+    return coll.each(out, lambda me: out[me].reshape(starts[me].shape[0],
+                                                     width))

@@ -39,7 +39,12 @@ before the real suffix with the same content, so they occupy the first
 
 What differs from the JAX package, and why:
   * A sharded array is a list of per-shard tensors (`collectives.py`);
-    one process drives every shard, whose device may repeat.
+    one process drives every shard, whose device may repeat, or, on a mesh
+    across processes (`parallel/multihost.py`), each process drives its
+    own shards and a list holds None for the others. Every process takes
+    the whole text, places only its own shards, and reads every host
+    decision (the tied count, the fast-path flags, the compaction switch)
+    from a reduction every process holds equally.
   * `lax.cond` becomes a host branch on a replicated value, one sync each:
     the skip of a round once the build has resolved (the tied count of
     the round before, read once a round), the fast path or fallback of
@@ -86,6 +91,7 @@ from stringsearch_torch.parallel.gather import (
     sharded_gather_capped,
     sharded_gather_windows,
 )
+from stringsearch_torch.parallel.multihost import gather_to_host
 
 _I32 = torch.int32
 _IDX = (torch.int32, torch.int64)
@@ -119,7 +125,8 @@ def _shift_in_from_next(x_first, fill) -> list:
     p = len(x_first)
     nxt = coll.ppermute(list(x_first), [(i, (i - 1) % p) for i in range(p)],
                         boundary=True)
-    nxt[-1] = torch.full_like(nxt[-1], fill)
+    if nxt[-1] is not None:
+        nxt[-1] = torch.full_like(nxt[-1], fill)
     return nxt
 
 
@@ -142,19 +149,18 @@ def _eq_prev(keys_s, fill) -> list:
     """Per shard: True where the sorted element's keys all equal its
     global predecessor's (the boundary value shifted in from the previous
     shard, `fill` on shard 0)."""
-    p = len(keys_s[0])
-    prev = shift_in_from_prev(
-        [torch.stack([ks[me][-1] for ks in keys_s]) for me in range(p)],
-        fill)
-    out = []
-    for me in range(p):
+    prev = shift_in_from_prev(coll.each(keys_s[0], lambda me: torch.stack(
+        [ks[me][-1] for ks in keys_s])), fill)
+
+    def eq_prev(me):
         eq = None
         for i, ks in enumerate(keys_s):
             k = ks[me]
             same = k == torch.cat([prev[me][i:i + 1], k[:-1]])
             eq = same if eq is None else eq & same
-        out.append(eq)
-    return out
+        return eq
+
+    return coll.each(prev, eq_prev)
 
 
 def _headslot_ranks_from_sorted(eq_prev, idx):
@@ -172,26 +178,28 @@ def _headslot_ranks_from_sorted(eq_prev, idx):
     local head (a headless shard contributes -1).
     """
     p = len(eq_prev)
-    length = eq_prev[0].shape[0]
-    gslots, heads = [], []
-    for me in range(p):
-        gslot = _global_iota(me, length, idx, eq_prev[me].device)
-        gslots.append(gslot)
-        heads.append(_last_flagged(~eq_prev[me], gslot))
-    lasts = coll.all_gather([h[-1] for h in heads])  # [P]
-    rank = []
-    for me in range(p):
+    length = coll.first_local(eq_prev).shape[0]
+    gslots = coll.each(eq_prev, lambda me: _global_iota(
+        me, length, idx, eq_prev[me].device))
+    heads = coll.each(eq_prev, lambda me: _last_flagged(~eq_prev[me],
+                                                        gslots[me]))
+    lasts = coll.all_gather(coll.each(heads, lambda me: heads[me][-1]))
+
+    def ranked(me):
         mask = torch.arange(p, device=lasts[me].device) < me
         carry = torch.where(mask, lasts[me], -1).amax()
-        rank.append(torch.where(heads[me] >= 0, heads[me], carry))
+        return torch.where(heads[me] >= 0, heads[me], carry)
+
+    rank = coll.each(heads, ranked)
     del heads
-    nf = _shift_in_from_next([r[:1] for r in rank], -1)
-    count = []
-    for me in range(p):
+    nf = _shift_in_from_next(coll.each(rank, lambda me: rank[me][:1]), -1)
+
+    def tied_count(me):
         rank_next = torch.cat([rank[me][1:], nf[me]])
         tied = (rank[me] != gslots[me]) | (rank_next == rank[me])
-        count.append(tied.sum(dtype=_I32))
-    return rank, coll.psum(count)
+        return tied.sum(dtype=_I32)
+
+    return rank, coll.psum(coll.each(rank, tied_count))
 
 
 def _initial_shard_ranks(depth: int, idx, chunks):
@@ -203,22 +211,23 @@ def _initial_shard_ranks(depth: int, idx, chunks):
     sa, rank_s, count).
     """
     p = len(chunks)
-    length = chunks[0].shape[0]
-    nxt = coll.ppermute([c[:depth] for c in chunks],
+    length = coll.first_local(chunks).shape[0]
+    nxt = coll.ppermute(coll.each(chunks, lambda me: chunks[me][:depth]),
                         [(i, (i - 1) % p) for i in range(p)])
-    nxt[-1] = torch.zeros_like(nxt[-1])
+    if nxt[-1] is not None:
+        nxt[-1] = torch.zeros_like(nxt[-1])
     nk = depth // 4
-    keys = [[] for _ in range(nk)]
-    gidx = []
-    for me in range(p):
+    keys = [[None] * p for _ in range(nk)]
+    gidx = [None] * p
+    for me in coll.local_parts(chunks):
         ext = torch.cat([chunks[me], nxt[me]]).to(_I32)  # [L + depth]
         for k in range(nk):
             o = 4 * k
-            keys[k].append(((ext[o:o + length] << 24)
+            keys[k][me] = (((ext[o:o + length] << 24)
                             | (ext[o + 1:o + 1 + length] << 16)
                             | (ext[o + 2:o + 2 + length] << 8)
                             | ext[o + 3:o + 3 + length]) ^ _BIAS)
-        gidx.append(_global_iota(me, length, idx, chunks[me].device))
+        gidx[me] = _global_iota(me, length, idx, chunks[me].device)
     del nxt
     out = sharded_sort(tuple(keys) + (gidx,), num_keys=nk)
     del keys, gidx
@@ -227,7 +236,8 @@ def _initial_shard_ranks(depth: int, idx, chunks):
     del keys_s, out
     # the global first element is never equal to a predecessor (the fill
     # could collide with a real key)
-    eq_prev[0][0] = False
+    if eq_prev[0] is not None:
+        eq_prev[0][0] = False
     rank_s, count = _headslot_ranks_from_sorted(eq_prev, idx)
     # back to text order: gidx_s is a permutation, so one all_to_all
     (rank,) = redistribute_permutation(gidx_s, (rank_s,))
@@ -242,35 +252,35 @@ def _shifted_ranks(rank, h: int, idx) -> list:
     split at once, shortest first.
     """
     p = len(rank)
-    length = rank[0].shape[0]
+    length = coll.first_local(rank).shape[0]
     d, r = divmod(h, length)
 
     def from_offset(delta):
         if delta >= p:
-            return [torch.full_like(x, -1) for x in rank]
+            return coll.each(rank, lambda me: torch.full_like(rank[me], -1))
         # shard i reads shard i + delta; delta 0 is this shard's own
         src = (list(rank) if delta == 0 else coll.ppermute(
             rank, [(i, i - delta) for i in range(delta, p)]))
-        return [x if me + delta < p else torch.full_like(x, -1)
-                for me, x in enumerate(src)]
+        return coll.each(src, lambda me: src[me] if me + delta < p
+                         else torch.full_like(src[me], -1))
 
     if r == 0:
         shifted = from_offset(d)
     else:
         a = from_offset(d)      # provides positions [r, L) of the window
         b = from_offset(d + 1)  # provides positions [0, r)
-        shifted = [torch.cat([x[r:], y[:r]]) for x, y in zip(a, b)]
+        shifted = coll.each(a, lambda me: torch.cat([a[me][r:],
+                                                     b[me][:r]]))
         del a, b
     n_pad = length * p
-    out = []
-    for me in range(p):
+
+    def shifted_or_marker(me):
         gidx = _global_iota(me, length, idx, rank[me].device)
         if h < n_pad:
-            out.append(torch.where(gidx < n_pad - h, shifted[me],
-                                   -(gidx + 1)))
-        else:
-            out.append(-(gidx + 1))
-    return out
+            return torch.where(gidx < n_pad - h, shifted[me], -(gidx + 1))
+        return -(gidx + 1)
+
+    return coll.each(rank, shifted_or_marker)
 
 
 def _doubling_step(chunk_len: int, total_shards: int, idx, h: int, rank,
@@ -283,8 +293,8 @@ def _doubling_step(chunk_len: int, total_shards: int, idx, h: int, rank,
     n_pad = chunk_len * total_shards
     shifts = [_shifted_ranks(rank, min(k * h, n_pad), idx)
               for k in range(1, fan)]
-    gidx = [_global_iota(me, chunk_len, idx, r.device)
-            for me, r in enumerate(rank)]
+    gidx = coll.each(rank, lambda me: _global_iota(me, chunk_len, idx,
+                                                   rank[me].device))
     # head-slot primary key: the interval-routed sort (merge-split on
     # adversarial rank skew)
     out = rank_interval_sort((rank, *shifts, gidx), num_keys=fan + 1)
@@ -310,7 +320,7 @@ def _rounds_block(chunk_len: int, total_shards: int, idx, hs: tuple,
             continue
         rank, sa, rank_s, count = _doubling_step(chunk_len, total_shards,
                                                  idx, h, rank, fan)
-        tied = int(count[0])
+        tied = int(coll.first_local(count))
         ran += 1
     return rank, sa, rank_s, tied, ran
 
@@ -358,38 +368,43 @@ def _compact_round(chunk_len: int, total_shards: int, idx, fan: int,
     big = torch.iinfo(idx).max
     perm_from_next = [(i, (i - 1) % p) for i in range(p)]
     perm_to_next = [(i, (i + 1) % p) for i in range(p)]
-    devs = [r.device for r in rank]
-    gslot = [_global_iota(me, length, idx, devs[me]) for me in range(p)]
+    mine = coll.local_parts(rank)
+    devs = coll.each(rank, lambda me: rank[me].device)
+    gslot = coll.each(rank, lambda me: _global_iota(me, length, idx,
+                                                    devs[me]))
 
     # 1. tied flags in sorted order (local + one boundary ppermute)
-    nf = _shift_in_from_next([r[:1] for r in rank_s], -1)
+    nf = _shift_in_from_next(coll.each(rank_s, lambda me: rank_s[me][:1]),
+                             -1)
     # 2. local extraction at capacity M (sorted by group id g = rank_s)
-    g0, pos0, over = [], [], []
-    for me in range(p):
+    g0, pos0, over = [None] * p, [None] * p, [None] * p
+    for me in mine:
         rank_s_next = torch.cat([rank_s[me][1:], nf[me]])
         tied = (rank_s[me] != gslot[me]) | (rank_s_next == rank_s[me])
         key_srt, pos_srt = device_sort(
             (torch.where(tied, rank_s[me], big), sa[me]), 1)
-        over.append(((m_cap < length)
-                     & (key_srt[min(m_cap, length - 1)] != big)).to(_I32))
-        g0.append(key_srt[:m_cap])
-        pos0.append(pos_srt[:m_cap])
+        over[me] = ((m_cap < length)
+                    & (key_srt[min(m_cap, length - 1)] != big)).to(_I32)
+        g0[me] = key_srt[:m_cap]
+        pos0[me] = pos_srt[:m_cap]
         del key_srt, pos_srt
-    over = [f > 0 for f in coll.psum(over)]
+    over = coll.psum(over)
+    over = coll.each(over, lambda me: over[me] > 0)
 
     # 3. straddle repair: entries whose group head lives on the PREVIOUS
     # shard (g < me*L, a prefix of the g-sorted extraction) ship there
-    pre = [g0[me] < me * length for me in range(p)]
+    pre = coll.each(g0, lambda me: g0[me] < me * length)
     g_in = coll.ppermute(g0, perm_from_next)
     pos_in = coll.ppermute(pos0, perm_from_next)
-    cnt_in = _shift_in_from_next([x.sum(dtype=_I32) for x in pre], 0)
-    gw, pw = [], []
-    for me in range(p):
+    cnt_in = _shift_in_from_next(coll.each(pre, lambda me: pre[me].sum(
+        dtype=_I32)), 0)
+    gw, pw = [None] * p, [None] * p
+    for me in mine:
         rv = torch.arange(m_cap, device=devs[me]) < cnt_in[me]
-        gw.append(torch.cat([torch.where(pre[me], big, g0[me]),
-                             torch.where(rv, g_in[me], big)]))
-        pw.append(torch.cat([torch.where(pre[me], n_pad, pos0[me]),
-                             torch.where(rv, pos_in[me], n_pad)]))
+        gw[me] = torch.cat([torch.where(pre[me], big, g0[me]),
+                            torch.where(rv, g_in[me], big)])
+        pw[me] = torch.cat([torch.where(pre[me], n_pad, pos0[me]),
+                            torch.where(rv, pos_in[me], n_pad)])
     del g0, pos0, pre, g_in, pos_in
 
     # 4. shifted keys: balanced capped gather on the sharded text-order
@@ -398,18 +413,17 @@ def _compact_round(chunk_len: int, total_shards: int, idx, fan: int,
     shifts = []
     for k in range(1, fan):
         s_k = min(h, n_pad // k + 1) * k
-        past = [w >= n_pad - s_k for w in pw]
-        req = [torch.where(pa, 0, w + s_k).to(_I32)
-               for pa, w in zip(past, pw)]
+        past = coll.each(pw, lambda me: pw[me] >= n_pad - s_k)
+        req = coll.each(pw, lambda me: torch.where(
+            past[me], 0, pw[me] + s_k).to(_I32))
         val, ov = sharded_gather_capped(rank, req, cap)
-        shifts.append([torch.where(pa, -(w + 1), v.to(idx))
-                       for pa, w, v in zip(past, pw, val)])
-        over = [a | b for a, b in zip(over, ov)]
+        shifts.append(coll.each(pw, lambda me: torch.where(
+            past[me], -(pw[me] + 1), val[me].to(idx))))
+        over = coll.each(over, lambda me: over[me] | ov[me])
 
     # 5. LOCAL refinement sort over the [2M] working set
-    work = []
-    count = []
-    for me in range(p):
+    work, count = [None] * p, [None] * p
+    for me in mine:
         out = device_sort((gw[me], *(s[me] for s in shifts), pw[me]),
                           fan + 1)
         g_s2, pos_s2 = out[0], out[-1]
@@ -428,7 +442,7 @@ def _compact_round(chunk_len: int, total_shards: int, idx, fan: int,
         new_g = torch.where(valid, g_s2 + (rhead - ghead), big)
         nxt_rhead = torch.cat([rhead[1:], rhead.new_full((1,), -1)])
         tied2 = valid & ((rhead != j2) | (nxt_rhead == rhead))
-        count.append(tied2.sum(dtype=_I32))
+        count[me] = tied2.sum(dtype=_I32)
         # the text-order write-back's routing (7b), sorted by destination
         dest = torch.where(valid, torch.div(pos_s2, length,
                                             rounding_mode="floor"),
@@ -436,32 +450,36 @@ def _compact_round(chunk_len: int, total_shards: int, idx, fan: int,
         d_s, po_s, ng_s = device_sort((dest, pos_s2, new_g), 1)
         rnk = (torch.arange(2 * m_cap, device=devs[me])
                - torch.searchsorted(d_s, d_s, side="left"))
-        work.append((slot, pos_s2, new_g, valid, d_s, po_s, ng_s, rnk))
+        work[me] = (slot, pos_s2, new_g, valid, d_s, po_s, ng_s, rnk)
         del out
     del gw, pw, shifts
     count = coll.psum(count)
-    wb_over = coll.psum([((w[4] < p) & (w[7] >= cap)).any().to(_I32)
-                         for w in work])
-    if host_flag([a | (b > 0) for a, b in zip(over, wb_over)]):
+    wb_over = coll.psum(coll.each(work, lambda me: (
+        (work[me][4] < p) & (work[me][7] >= cap)).any().to(_I32)))
+    if host_flag(coll.each(over, lambda me: over[me] | (wb_over[me] > 0))):
         compact_fallbacks += 1
         del work
         return _doubling_step(chunk_len, total_shards, idx, h, rank, fan)
 
     # 7a. SA and sorted-rank write-back by slot: a local scatter and one
     # next-neighbour ppermute for the spill (slot < (me+2)L)
-    sa_new, rank_s_new, spill = [], [], []
-    for me, (slot, pos_s2, new_g, valid, *_rest) in enumerate(work):
+    sa_new, rank_s_new, spill = [None] * p, [None] * p, [None] * p
+    for me in mine:
+        slot, pos_s2, new_g, valid, *_rest = work[me]
         loc = slot - me * length
         in_loc = valid & (loc >= 0) & (loc < length)
         drop_i = torch.where(in_loc, loc, length)
-        sa_new.append(_scatter_into(sa[me], drop_i, pos_s2))
-        rank_s_new.append(_scatter_into(rank_s[me], drop_i, new_g))
-        spill.append(torch.where(valid & (loc >= length), slot, n_pad))
+        sa_new[me] = _scatter_into(sa[me], drop_i, pos_s2)
+        rank_s_new[me] = _scatter_into(rank_s[me], drop_i, new_g)
+        spill[me] = torch.where(valid & (loc >= length), slot, n_pad)
     sp1 = coll.ppermute(spill, perm_to_next)
-    sp2 = coll.ppermute([w[1] for w in work], perm_to_next)
-    sp3 = coll.ppermute([w[2] for w in work], perm_to_next)
-    sp1[0] = torch.full_like(sp1[0], n_pad)  # shard 0 receives nothing
-    for me in range(p):
+    sp2 = coll.ppermute(coll.each(work, lambda me: work[me][1]),
+                        perm_to_next)
+    sp3 = coll.ppermute(coll.each(work, lambda me: work[me][2]),
+                        perm_to_next)
+    if sp1[0] is not None:
+        sp1[0] = torch.full_like(sp1[0], n_pad)  # shard 0 receives nothing
+    for me in mine:
         loc2 = sp1[me] - me * length
         drop2 = torch.where((loc2 >= 0) & (loc2 < length), loc2, length)
         sa_new[me] = _scatter_into(sa_new[me], drop2, sp2[me])
@@ -470,8 +488,9 @@ def _compact_round(chunk_len: int, total_shards: int, idx, fan: int,
 
     # 7b. text-order rank write-back: balanced all_to_all scatter (row p
     # of the send buffers is the drop row)
-    send_po, send_ng = [], []
-    for me, (*_head, d_s, po_s, ng_s, rnk) in enumerate(work):
+    send_po, send_ng = [None] * p, [None] * p
+    for me in mine:
+        *_head, d_s, po_s, ng_s, rnk = work[me]
         use = (d_s < p) & (rnk < cap)
         row = torch.where(use, d_s, p)
         col = rnk.clamp(max=cap - 1)
@@ -479,20 +498,20 @@ def _compact_round(chunk_len: int, total_shards: int, idx, fan: int,
         po[row, col] = po_s
         ng = torch.zeros((p + 1, cap), dtype=idx, device=devs[me])
         ng[row, col] = ng_s
-        send_po.append(po[:p])
-        send_ng.append(ng[:p])
+        send_po[me] = po[:p]
+        send_ng[me] = ng[:p]
     del work
     recv_po = coll.all_to_all(send_po)
     recv_ng = coll.all_to_all(send_ng)
     del send_po, send_ng
-    rank_new = []
-    for me in range(p):
+
+    def written_back(me):
         locp = recv_po[me].reshape(-1) - me * length
         inp = (locp >= 0) & (locp < length)
-        rank_new.append(_scatter_into(rank[me], torch.where(inp, locp,
-                                                            length),
-                                      recv_ng[me].reshape(-1)))
-    return rank_new, sa_new, rank_s_new, count
+        return _scatter_into(rank[me], torch.where(inp, locp, length),
+                             recv_ng[me].reshape(-1))
+
+    return coll.each(rank, written_back), sa_new, rank_s_new, count
 
 
 def _compact_block(chunk_len: int, total_shards: int, idx, fan: int,
@@ -505,7 +524,7 @@ def _compact_block(chunk_len: int, total_shards: int, idx, fan: int,
             continue
         rank, sa, rank_s, count = _compact_round(
             chunk_len, total_shards, idx, fan, m_cap, h, rank, sa, rank_s)
-        tied = int(count[0])
+        tied = int(coll.first_local(count))
         ran += 1
     return rank, sa, rank_s, tied, ran
 
@@ -530,32 +549,35 @@ def _verify_shard(chunk_len: int, idx, text_chunks, rank_chunks,
     """
     p = len(rank_chunks)
     n_pad = chunk_len * p
-    devs = [r.device for r in rank_chunks]
-    gidx = [_global_iota(me, chunk_len, idx, devs[me]) for me in range(p)]
+    ranks = list(rank_chunks)
+    gidx = coll.each(ranks, lambda me: _global_iota(me, chunk_len, idx,
+                                                    ranks[me].device))
     # rank(i+1): local shift; the boundary value is the next shard's first
     # rank; the global last position gets -1
-    nxt_first = _shift_in_from_next([r[:1] for r in rank_chunks], -1)
-    rank_next = [torch.cat([r[1:], f]) for r, f in zip(rank_chunks,
-                                                       nxt_first)]
-    first = [t.to(idx) for t in text_chunks]
+    nxt_first = _shift_in_from_next(coll.each(ranks, lambda me: ranks[me][
+        :1]), -1)
+    rank_next = coll.each(ranks, lambda me: torch.cat([ranks[me][1:],
+                                                      nxt_first[me]]))
+    first = coll.each(ranks, lambda me: text_chunks[me].to(idx))
     r_s, fb_s, rn_s, pos_s = sharded_sort(
-        (list(rank_chunks), first, rank_next, gidx), num_keys=1)
-    prev = shift_in_from_prev(
-        [torch.stack([fb_s[me][-1], rn_s[me][-1]]) for me in range(p)], -1)
-    bad_local, ok_local, kind_local = [], [], []
-    for me in range(p):
+        (ranks, first, rank_next, gidx), num_keys=1)
+    prev = shift_in_from_prev(coll.each(fb_s, lambda me: torch.stack(
+        [fb_s[me][-1], rn_s[me][-1]])), -1)
+    bad_local, ok_local, kind_local = [None] * p, [None] * p, [None] * p
+    for me in coll.local_parts(ranks):
         perm_ok = (r_s[me] == gidx[me]).all()
         sa_ok = (pos_s[me] == sa_chunks[me]).all()
         fb_p = torch.cat([prev[me][:1], fb_s[me][:-1]])
         rn_p = torch.cat([prev[me][1:2], rn_s[me][:-1]])
         adj_ok = (fb_p < fb_s[me]) | ((fb_p == fb_s[me]) & (rn_p < rn_s[me]))
         adj_ok = adj_ok | (gidx[me] == 0)  # the global first slot
-        bad_local.append(torch.where(adj_ok, n_pad, gidx[me]).amin())
-        ok_local.append((perm_ok & sa_ok & adj_ok.all()).to(_I32))
-        kind_local.append(torch.where(perm_ok, torch.where(sa_ok, 2, 1),
-                                      0).to(_I32))
+        bad_local[me] = torch.where(adj_ok, n_pad, gidx[me]).amin()
+        ok_local[me] = (perm_ok & sa_ok & adj_ok.all()).to(_I32)
+        kind_local[me] = torch.where(perm_ok, torch.where(sa_ok, 2, 1),
+                                     0).to(_I32)
     bad = _gmin(bad_local)
-    ok = [x == 1 for x in _gmin(ok_local)]
+    ok = _gmin(ok_local)
+    ok = coll.each(ok, lambda me: ok[me] == 1)
     kind = _gmin(kind_local)
     return ok, bad, kind
 
@@ -564,12 +586,14 @@ def _reduce_over_shards(starts, lengths, n: int):
     """The best candidate over shards: pad suffixes (start >= n) masked,
     matches clamped at the real end of text, first maximum wins. Returns
     host arrays (start [B], length [B])."""
-    lens = []
-    for s, ln in zip(starts, lengths):
-        ln = torch.minimum(ln.to(s.dtype), n - s)
-        lens.append(torch.where(s < n, ln, -1))
-    all_len = coll.all_gather(lens)[0]  # [P, B]
-    all_start = coll.all_gather(list(starts))[0]
+    def masked(me):
+        s = starts[me]
+        ln = torch.minimum(lengths[me].to(s.dtype), n - s)
+        return torch.where(s < n, ln, -1)
+
+    all_len = coll.first_local(coll.all_gather(coll.each(
+        starts, masked)))  # [P, B]
+    all_start = coll.first_local(coll.all_gather(list(starts)))
     best_p = torch.argmax(all_len, dim=0)  # the first maximum
     best_len = all_len.amax(0).clamp(min=0)
     best_start = all_start.gather(0, best_p[None, :])[0]
@@ -577,13 +601,36 @@ def _reduce_over_shards(starts, lengths, n: int):
     return both[0], both[1]
 
 
-def _replicated(xs_host: np.ndarray, devices) -> list:
-    """A host array on every shard's device (one copy per device)."""
+def _replicated(xs_host: np.ndarray, shards) -> list:
+    """A host array on the device of each of this process's shards (one
+    copy per device)."""
     made = {}
-    for d in devices:
+    for me in coll.local_parts(shards):
+        d = shards[me].device
         if d not in made:
             made[d] = torch.tensor(xs_host, device=d)
-    return [made[d] for d in devices]
+    return coll.each(shards, lambda me: made[shards[me].device])
+
+
+def _in_lockstep(searches, probe) -> list:
+    """`run_in_lockstep` over this process's shards' searches (None for the
+    others); `probe` and the results are indexed by global shard."""
+    from stringsearch_torch.core.search import run_in_lockstep
+
+    mine = coll.local_parts(searches)
+
+    def by_shard(xs):
+        full = [None] * len(searches)
+        for me, x in zip(mine, xs):
+            full[me] = x
+        return full
+
+    def local_probe(positions):
+        answers = probe(by_shard(positions))
+        return [answers[me] for me in mine]
+
+    return by_shard(run_in_lockstep([searches[me] for me in mine],
+                                    local_probe))
 
 
 def _windows(text_mode: str, sa, text, n_limit: int, chunk: int,
@@ -593,19 +640,22 @@ def _windows(text_mode: str, sa, text, n_limit: int, chunk: int,
     replicated text or through the distributed gather, PAST_TEXT_END at
     and past global position `n_limit`."""
     def probe(positions):
-        starts = [s[pos.clamp(0, chunk - 1)] for s, pos in zip(sa, positions)]
+        starts = coll.each(positions, lambda me: sa[me][
+            positions[me].clamp(0, chunk - 1)])
         if text_mode == "replicated":
-            wins = [cmp.gather_window(t, st, m_width)
-                    for t, st in zip(text, starts)]
+            wins = coll.each(starts, lambda me: cmp.gather_window(
+                text[me], starts[me], m_width))
         else:
-            wins = [w.to(_I32) for w in sharded_gather_windows(
-                text, starts, m_width)]
-        out = []
-        for st, win in zip(starts, wins):
+            wins = sharded_gather_windows(text, starts, m_width)
+            wins = coll.each(wins, lambda me: wins[me].to(_I32))
+
+        def masked(me):
+            st = starts[me]
             offs = torch.arange(m_width, dtype=st.dtype, device=st.device)
             inb = (st[:, None] + offs[None, :]) < n_limit
-            out.append((st, torch.where(inb, win, cmp.PAST_TEXT_END)))
-        return out
+            return st, torch.where(inb, wins[me], cmp.PAST_TEXT_END)
+
+        return coll.each(starts, masked)
     return probe
 
 
@@ -641,11 +691,12 @@ class GlobalSuffixArray:
         if fan < 2:
             raise ValueError("fan must be >= 2")
         self.mesh = mesh
+        mesh.bind()
         self.idx = idx
         self.fan = fan
         self.compaction = compaction
         devices = mesh.part_devices
-        arr = as_text_tensor(text, devices[0])
+        arr = as_text_tensor(text, devices[mesh.local_parts[0]])
         self.n = int(arr.shape[0])
         p = mesh.shape[_AXIS]
         self.num_shards = p
@@ -660,6 +711,7 @@ class GlobalSuffixArray:
         if pad:
             arr = torch.cat([arr, arr.new_zeros((pad,))])
         self.text_padded = [arr[s * chunk:(s + 1) * chunk].to(dev)
+                            if mesh.is_local(s) else None
                             for s, dev in enumerate(devices)]
         del arr
         self._sa_host: Optional[np.ndarray] = None
@@ -672,7 +724,7 @@ class GlobalSuffixArray:
 
         rank, sa, rank_s, count = _initial_shard_ranks(
             self.depth, idx, self.text_padded)
-        tied = int(count[0])
+        tied = int(coll.first_local(count))
         h = self.depth
         self.rounds_run = 0
         self.compact_rounds_run = 0
@@ -686,7 +738,7 @@ class GlobalSuffixArray:
                 f"global engine n={self.n} shards={p} chunk={chunk} "
                 f"depth={self.depth} fan={self.fan}"
             )
-            self._tracer.dump(f"rank h={self.depth}", _host_cat(rank))
+            self._tracer.dump(f"rank h={self.depth}", gather_to_host(rank))
         # h saturates at n_pad, where the marker round resolves every
         # remaining tie (the raw-byte conflation makes a count-based early
         # exit unsound; the saturated round is the guaranteed finisher).
@@ -721,7 +773,7 @@ class GlobalSuffixArray:
                     f"compact={compact} tied={tied}"
                 )
                 self._tracer.dump(f"rank after {self.rounds_run} rounds",
-                                  _host_cat(rank))
+                                  gather_to_host(rank))
             if self.rounds_run > 2 * n_pad.bit_length() \
                     + 2 * ROUNDS_PER_DISPATCH:
                 raise AssertionError(
@@ -741,9 +793,8 @@ class GlobalSuffixArray:
         ok, bad, kind = _verify_shard(self.chunk_len, self.idx,
                                       self.text_padded, self.rank,
                                       self._sa_sharded)
-        ok, bad, kind = torch.stack([ok[0].to(torch.int64),
-                                     bad[0].to(torch.int64),
-                                     kind[0].to(torch.int64)]).tolist()
+        ok, bad, kind = torch.stack([coll.first_local(x).to(torch.int64)
+                                     for x in (ok, bad, kind)]).tolist()
         if ok:
             return
         if kind == 0:
@@ -774,7 +825,7 @@ class GlobalSuffixArray:
         """The exact SA of the (unpadded) text as a host array [n]."""
         if self._sa_host is None:
             # pad suffixes sort strictly first; drop them
-            self._sa_host = _host_cat(self._sa_sharded)[self.pad:]
+            self._sa_host = gather_to_host(self._sa_sharded)[self.pad:]
         return self._sa_host
 
     def _text_for(self, text_mode: str) -> list:
@@ -797,7 +848,6 @@ class GlobalSuffixArray:
             _ceil_log2,
             _needle_batch_to_windows,
             lcs_steps,
-            run_in_lockstep,
         )
         from stringsearch_torch.core.types import LongestCommonSubstring
 
@@ -807,16 +857,16 @@ class GlobalSuffixArray:
         padded, _lens, width = _needle_batch_to_windows(needles)
         chunk = self.chunk_len
         steps = _ceil_log2(chunk + 1) + 1
-        nds = _replicated(padded, self.mesh.part_devices)
+        nds = _replicated(padded, self._sa_sharded)
         probe = _windows(text_mode, self._sa_sharded,
                          self._text_for(text_mode), chunk * self.num_shards,
                          chunk, width)
-        found = run_in_lockstep(
-            [lcs_steps(chunk, nd, steps) for nd in nds], probe)
-        starts = [f[0] for f in found]
-        lengths = [f[1] for f in found]
+        found = _in_lockstep(coll.each(nds, lambda me: lcs_steps(
+            chunk, nds[me], steps)), probe)
+        starts = coll.each(found, lambda me: found[me][0])
+        lengths = coll.each(found, lambda me: found[me][1])
         start, length = _reduce_over_shards(starts, lengths, self.n)
-        host = _host_cat(self.text_padded)[:self.n]
+        host = gather_to_host(self.text_padded)[:self.n]
         return [LongestCommonSubstring(host, int(start[i]), int(length[i]))
                 for i in range(len(needles))]
 
@@ -839,7 +889,6 @@ class GlobalSuffixArray:
             _ceil_log2,
             _needle_batch_to_windows,
             needle_mask_cmp,
-            run_in_lockstep,
             sa_search_steps,
         )
 
@@ -849,22 +898,23 @@ class GlobalSuffixArray:
         padded, lens, width = _needle_batch_to_windows(needles)
         chunk = self.chunk_len
         steps = _ceil_log2(chunk + 1) + 1
-        devices = self.mesh.part_devices
-        nds = _replicated(padded, devices)
-        compares = [needle_mask_cmp(nd, ln) for nd, ln in
-                    zip(nds, _replicated(lens, devices))]
+        nds = _replicated(padded, self._sa_sharded)
+        lns = _replicated(lens, self._sa_sharded)
+        compares = coll.each(nds, lambda me: needle_mask_cmp(nds[me],
+                                                             lns[me]))
         windows = _windows(text_mode, self._sa_sharded,
                            self._text_for(text_mode), self.n, chunk, width)
 
         def probe(positions):
-            return [compare(win) for compare, (_st, win) in
-                    zip(compares, windows(positions))]
+            wins = windows(positions)
+            return coll.each(wins, lambda me: compares[me](wins[me][1]))
 
-        found = run_in_lockstep(
-            [sa_search_steps(chunk, len(needles), steps, nd.device)
-             for nd in nds], probe)
-        count = coll.psum([up - lo for lo, up in found])[0]
-        left = coll.psum([lo for lo, _up in found])[0]
+        found = _in_lockstep(coll.each(nds, lambda me: sa_search_steps(
+            chunk, len(needles), steps, nds[me].device)), probe)
+        count = coll.first_local(coll.psum(coll.each(
+            found, lambda me: found[me][1] - found[me][0])))
+        left = coll.first_local(coll.psum(coll.each(
+            found, lambda me: found[me][0])))
         both = torch.stack([count, left]).cpu().numpy()  # one host fetch
         out = []
         for i, nd in enumerate(needles):
@@ -884,19 +934,20 @@ class GlobalSuffixArray:
         return self.sa_search(bytes([c]), text_mode)
 
     def to_suffix_array_index(self):
-        """A single-device `SuffixArray` (on shard 0's device) for the
-        query API."""
+        """A single-device `SuffixArray` (on this process's first shard's
+        device) for the query API; across processes every process calls
+        it (the shards are gathered through the host)."""
         from stringsearch_torch.core.types import SuffixArray
 
-        dev = self.text_padded[0].device
-        text = torch.cat([t.to(dev) for t in self.text_padded])[:self.n]
-        sa = torch.cat([s.to(dev) for s in self._sa_sharded])[self.pad:]
-        return SuffixArray(text, sa)
+        dev = coll.first_local(self.text_padded).device
 
+        def whole(xs):
+            if all(x is not None for x in xs):
+                return torch.cat([x.to(dev) for x in xs])
+            return torch.from_numpy(gather_to_host(xs)).to(dev)
 
-def _host_cat(xs) -> np.ndarray:
-    """The concatenation of per-shard tensors as one host array."""
-    return torch.cat([x.cpu() for x in xs]).numpy()
+        return SuffixArray(whole(self.text_padded)[:self.n],
+                           whole(self._sa_sharded)[self.pad:])
 
 
 def build_global(text: BytesLike, mesh, idx=_I32,

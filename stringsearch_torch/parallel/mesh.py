@@ -20,6 +20,9 @@ What differs from the JAX package, and why:
   * A partition's arrays live on the first device of its "parts" row; a
     needle block answered on another device of the row reads them there
     (a copy between devices, none on one device).
+  * A mesh may span processes (`parallel/multihost.py:device_mesh`):
+    `owners` names the process that holds each "parts" row, and a process
+    builds and queries only its own rows (`collectives.py`).
 """
 
 from __future__ import annotations
@@ -48,24 +51,47 @@ class Mesh:
     """Devices on a ("parts", "batch") grid: `devices[part][batch]`.
 
     `shape` maps each axis name to its size, as a JAX mesh's does. A
-    device may appear more than once.
+    device may appear more than once. `owners` names the process rank that
+    holds each "parts" row; None means this process holds every row (a
+    single controller). A remote row's devices are its owner's, as the
+    owner named them.
     """
 
     axis_names = ("parts", "batch")
 
-    def __init__(self, devices: Sequence[Sequence]):
+    def __init__(self, devices: Sequence[Sequence],
+                 owners: Optional[Sequence[int]] = None):
         rows = [[torch.device(d) for d in row] for row in devices]
         if not rows or not rows[0] or any(len(r) != len(rows[0])
                                           for r in rows):
             raise ValueError("a mesh needs a non-empty rectangular grid of "
                              "devices")
+        if owners is not None and len(owners) != len(rows):
+            raise ValueError(f"{len(owners)} owners for {len(rows)} "
+                             f"\"parts\" rows")
         self.devices = rows
         self.shape = {"parts": len(rows), "batch": len(rows[0])}
+        self.owners = None if owners is None else tuple(int(o)
+                                                        for o in owners)
 
     @property
     def part_devices(self) -> list:
         """The device of each "parts" index: the first of its row."""
         return [row[0] for row in self.devices]
+
+    def is_local(self, s: int) -> bool:
+        """True when this process holds "parts" index s."""
+        return self.owners is None or self.owners[s] == coll.process_rank()
+
+    @property
+    def local_parts(self) -> list:
+        """The "parts" indices this process holds."""
+        return [s for s in range(self.shape["parts"]) if self.is_local(s)]
+
+    def bind(self) -> None:
+        """Hand the owners to the collectives (a mesh across processes)."""
+        if self.owners is not None:
+            coll.bind_owners(self.owners)
 
 
 def _visible_cuda_devices() -> list:
@@ -118,15 +144,16 @@ def build_sharded(text: BytesLike, mesh: Mesh):
     from stringsearch_torch.engines.doubling import _auto_depth, build_sa
 
     devices = mesh.part_devices
-    text = as_text_tensor(text, devices[0])
+    local = mesh.local_parts
+    text = as_text_tensor(text, devices[local[0]])
     num_parts = mesh.shape["parts"]
     padded, part, real_lens = _pad_to_partitions(text, num_parts)
     chunks = [padded[s * part:(s + 1) * part].to(dev)
-              for s, dev in enumerate(devices)]
+              if mesh.is_local(s) else None for s, dev in enumerate(devices)]
     sas = [None] * num_parts
     # the partitions that share a device are built in one build
-    for dev in dict.fromkeys(devices):
-        mine = [s for s, d in enumerate(devices) if d == dev]
+    for dev in dict.fromkeys(devices[s] for s in local):
+        mine = [s for s in local if devices[s] == dev]
         flat = build_sa(torch.cat([chunks[s] for s in mine]),
                         depth=_auto_depth(part * len(mine)), chunk=part)
         for k, s in enumerate(mine):
@@ -142,12 +169,12 @@ def _sharded_query(chunks, sas, full_text, real_lens, needles, steps: int,
     with an all-gather and a first-maximum argmax. Returns host arrays
     (start [B], length [B])."""
     num_parts, batch = mesh.shape["parts"], mesh.shape["batch"]
-    chunk_len = chunks[0].shape[0]
+    chunk_len = coll.first_local(chunks).shape[0]
     blk = needles.shape[0] // batch
     starts, lens = [], []
     for b in range(batch):
-        tlens, gstarts = [], []
-        for s in range(num_parts):
+        tlens, gstarts = [None] * num_parts, [None] * num_parts
+        for s in coll.local_parts(chunks):
             dev = mesh.devices[s][b]
             nds = host_tensor(needles[b * blk:(b + 1) * blk], dev)
             start, _ = lcs_kernel(chunks[s].to(dev), sas[s].to(dev), nds,
@@ -157,10 +184,10 @@ def _sharded_query(chunks, sas, full_text, real_lens, needles, steps: int,
             windows = cmp.gather_window(full_text.to(dev), gstart,
                                         nds.shape[-1])
             tlen = cmp.prefix_match_len(windows, nds)
-            tlens.append(torch.where(start < int(real_lens[s]), tlen, -1))
-            gstarts.append(gstart)
-        all_len = coll.all_gather(tlens)[0]  # [P, b_loc]
-        all_start = coll.all_gather(gstarts)[0]
+            tlens[s] = torch.where(start < int(real_lens[s]), tlen, -1)
+            gstarts[s] = gstart
+        all_len = coll.first_local(coll.all_gather(tlens))  # [P, b_loc]
+        all_start = coll.first_local(coll.all_gather(gstarts))
         best_p = torch.argmax(all_len, dim=0)  # the first maximum
         lens.append(all_len.amax(0).clamp(min=0).cpu().numpy())
         starts.append(all_start.gather(0, best_p[None, :])[0].cpu().numpy())
@@ -173,10 +200,12 @@ class ShardedSuffixArray:
 
     def __init__(self, text: BytesLike, mesh: Mesh):
         self.mesh = mesh
-        self.text = as_text_tensor(text, mesh.part_devices[0])
+        mesh.bind()
+        self.text = as_text_tensor(text,
+                                   mesh.part_devices[mesh.local_parts[0]])
         self.chunks, self.sas, self.real_lens = build_sharded(self.text,
                                                               mesh)
-        self.partition_size = int(self.chunks[0].shape[0])
+        self.partition_size = int(coll.first_local(self.chunks).shape[0])
         self._host_text: Optional[np.ndarray] = None
 
     def num_partitions(self) -> int:

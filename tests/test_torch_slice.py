@@ -97,7 +97,8 @@ def test_port_never_imports_jax():
         "             'parallel.partitioned', 'parallel.collectives',\n"
         "             'parallel.mesh', 'parallel.distsort',\n"
         "             'parallel.gather', 'parallel.global_sa',\n"
-        "             'parallel.comm_model', 'transforms.bwt',\n"
+        "             'parallel.comm_model', 'parallel.multihost',\n"
+        "             'transforms.bwt',\n"
         "             'utils.sizes'):\n"
         "    assert 'stringsearch_torch.' + need in names, need\n"
         "bad = sorted(m for m in sys.modules\n"
