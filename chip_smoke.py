@@ -15,12 +15,15 @@ present. Phases, each printed with its result and time:
      radix-partition kernels (one nvcc per source, all started together);
   2. both sort kernels against the plain sort at 2^24 and 2^24 + 12345,
      tolerance 0: the radix sort, which is stable, element for element on
-     every plane (heavy ties under a random payload and INT32_MIN/MAX keys
-     among the cases), and against its own plain version
+     every plane (heavy ties under a random payload, INT32_MIN/MAX keys,
+     a constant key plane, a two-bit plane, ranks below 2^24 and all
+     planes constant among the cases), and against its own plain version
      `plain_radix_sort`; the bitonic sort on its keys, its payloads as
      multisets per tied block. Then the radix sort, the bitonic sort and
      the chained `torch.sort` timed with CUDA events at the main path's
-     three shapes at 2^28, beside the sort's two bandwidth bounds;
+     three shapes at 2^28 on full-range random keys, and the radix sort
+     and the chained `torch.sort` on ranks below 2^28 with the position as
+     payload, beside the sort's bound and the radix design's own bytes;
   3. `build_suffix_array(enwik_like(2^28), device="cuda")`, then the
      device verify and the host oracle's sufcheck; over the build the
      radix sort's launch count must be > 0 and the bitonic sort's 0;
@@ -196,12 +199,16 @@ def sort_bounds(n: int, c: int, nk: int) -> dict:
     return bound(8 * c * n, nk * n * math.log2(max(n, 2)))
 
 
-def radix_design_ms(n: int, c: int, nk: int) -> float:
-    """What the radix design's own traffic costs at the card's memory rate:
-    4 nk passes, each reading the key plane for its histogram, then reading
-    and writing all c planes. More bytes than the function needs, so not a
+def radix_design_ms(n: int, c: int, nk: int, live) -> float:
+    """What the radix design's own traffic costs at the card's memory rate
+    (`radix_sort.design_bytes`: one read of the key planes for every
+    histogram, then all c planes read and written by each live pass, and
+    the look-back words). More bytes than the function needs, so not a
     bound of the function: printed beside `bound_ms`, reported nowhere."""
-    return round(4 * nk * (2 * c + 1) * 4 * n / BYTES_PER_S * 1e3, 4)
+    from stringsearch_torch.ops import radix_sort
+
+    return round(radix_sort.design_bytes(n, c, nk, live) / BYTES_PER_S * 1e3,
+                 4)
 
 
 def canonical(keys, payloads):
@@ -271,6 +278,21 @@ def phase2_sorts_vs_plain() -> dict:
          [pick(ragged, [INT32_MIN, INT32_MIN + 1, -1, 0, INT32_MAX - 1,
                         INT32_MAX]) for _ in range(2)]
          + [rand(ragged, -2**31, INT32_MAX), iota]),
+        # the skipped passes: a constant key plane between two live ones
+        ("constant plane C=4 keys=3", 3,
+         [rand(ragged, -4, 4), torch.full_like(iota, -77),
+          rand(ragged, -2**31, INT32_MAX), iota]),
+        # a partition index (two live bits) leading the keys
+        ("two-bit plane C=5 keys=4", 4,
+         [rand(ragged, 0, 4), rand(ragged, 0, 1 << 20),
+          rand(ragged, -8, 1 << 20), rand(ragged, -8, 8), iota]),
+        # ranks below 2^24: the top digit of every key plane constant
+        ("ranks below 2^24 C=5 keys=4", 4,
+         [rand(n24, 0, n24) for _ in range(4)] + [iota[:n24]]),
+        # every digit constant: the one pass left is a copy
+        ("all planes constant C=3 keys=2", 2,
+         [torch.full_like(iota, INT32_MAX), torch.full_like(iota, -1),
+          iota]),
     ]
     reports = {"radix_sort": {"shapes": []}, "bitonic_sort": {"shapes": []}}
     for name, nk, ops in cases:
@@ -327,6 +349,7 @@ def phase2_sorts_vs_plain() -> dict:
         ops = [rand(n, -2**31, INT32_MAX) for _ in range(nk)]
         ops += [torch.arange(n, dtype=torch.int32, device="cuda")
                 for _ in range(c - nk)]
+        live = radix_sort.plan(ops, nk)[1]
         want = bitonic.plain_sort(ops, nk)
         got = radix_sort.radix_sort(ops, nk)
         torch.cuda.synchronize()
@@ -344,7 +367,8 @@ def phase2_sorts_vs_plain() -> dict:
             f"{radix_ms:.3f} ms, bitonic {bitonic_ms:.3f} ms, chained "
             f"torch.sort {library_ms:.3f} ms; bound {bounds['bound_ms']} ms "
             f"(every plane once); the radix design's own bytes take "
-            f"{radix_design_ms(n, c, nk)} ms")
+            f"{radix_design_ms(n, c, nk, live)} ms ({sum(live)} of "
+            f"{len(live)} passes live)")
         check(radix_err == 0, f"the radix sort disagrees with the plain sort "
                               f"at 2^{LOG2N}, {name}")
         check(bitonic_err == 0, f"the bitonic sort's keys disagree with the "
@@ -358,6 +382,37 @@ def phase2_sorts_vs_plain() -> dict:
                 "max_abs_err": err, "ms": round(ms, 4),
                 "plain_ms": round(library_ms, 4),
                 "library_ms": round(library_ms, 4), **bounds})
+        del ops
+        torch.cuda.empty_cache()
+
+    # the same shapes on the main path's own keys: ranks below n, the
+    # position as payload
+    for name, c, nk in SORT_SHAPES:
+        ops = [rand(n, 0, n) for _ in range(nk)]
+        ops += [torch.arange(n, dtype=torch.int32, device="cuda")
+                for _ in range(c - nk)]
+        live = radix_sort.plan(ops, nk)[1]
+        want = bitonic.plain_sort(ops, nk)
+        got = radix_sort.radix_sort(ops, nk)
+        torch.cuda.synchronize()
+        radix_err = _exact_err(got, want)
+        del got, want
+        radix_ms = cuda_ms(lambda: radix_sort.radix_sort(ops, nk), 2)
+        library_ms = cuda_ms(lambda: bitonic.plain_sort(ops, nk), 2)
+        bounds = sort_bounds(n, c, nk)
+        say(f"phase 2: {name} C={c} keys={nk} n=2^{LOG2N}, ranks below n: "
+            f"max_abs_err radix {radix_err} (tolerance 0); radix "
+            f"{radix_ms:.3f} ms, chained torch.sort {library_ms:.3f} ms; "
+            f"bound {bounds['bound_ms']} ms (every plane once); the radix "
+            f"design's own bytes take {radix_design_ms(n, c, nk, live)} ms "
+            f"({sum(live)} of {len(live)} passes live)")
+        check(radix_err == 0, f"the radix sort disagrees with the plain sort "
+                              f"at 2^{LOG2N} on ranks, {name}")
+        reports["radix_sort"]["shapes"].append({
+            "shape": f"ranks {name} C={c} keys={nk}", "n": n,
+            "max_abs_err": radix_err, "ms": round(radix_ms, 4),
+            "plain_ms": round(library_ms, 4),
+            "library_ms": round(library_ms, 4), **bounds})
         del ops
         torch.cuda.empty_cache()
     return reports

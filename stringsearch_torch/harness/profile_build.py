@@ -11,9 +11,10 @@ chained `torch.sort` in its place, and prints for each:
   * the CUDA-event time of every `device_sort` call of one build, with its
     plane and key counts, and the build's device time outside the sorts;
   * from `torch.profiler` over one more build: the device time of each
-    kernel, summed by name (`sort_hist_kernel`, `sort_scan_kernel` and
-    `sort_scatter_kernel` are the radix sort's three steps), and the
-    device's idle share, 1 - summed kernel time / median unprofiled wall.
+    kernel, summed by name (`sort_hist_kernel`, `sort_plan_kernel` and
+    `sort_pass_kernel` are the radix sort's three steps: one histogram
+    read and one plan a sort, one kernel a pass), and the device's idle
+    share, 1 - summed kernel time / median unprofiled wall.
 Then, on each of the three sorts, the build walls of the small and
 adversarial inputs that `chip_smoke.py` holds against the oracle, whose
 cost is many small sorts. Then, at 2^28 on the radix sort, the same sort

@@ -1,20 +1,24 @@
-"""What each design choice of the two sort kernels and of the radix
+"""What each design choice of the sort kernels and of the radix
 destination kernel buys, on one GPU.
 
-    python -m stringsearch_torch.harness.sort_variants [sort] [dest]
+    python -m stringsearch_torch.harness.sort_variants [FAMILY ...]
 
-With no argument both families run. `sort` builds copies of
-`ops/csrc/radix_sort.cu` (the sort behind `device_sort`) and of
-`ops/csrc/bitonic.cu` with one choice changed (the text replacements
-in RADIX_VARIANTS and VARIANTS, each of which must match its source exactly
-once), checks every copy against the plain sort (the radix copies on every
-plane, the unstable bitonic copies on their keys), and times each with CUDA
-events at the main path's plane counts, at n = 2^24 and 2^28: random int32
-keys plus a position plane. A bitonic time includes the copy of the input
-planes, as `bitonic_sort` makes one; a radix time includes the allocation
-of its two scratch sets, as `radix_sort` makes them. The variants run in
-order, then in reverse order, so a drift of the card's clock shows as a gap
-between the two times of one variant.
+The families are `sort`, `bitonic`, `dest` and `earlier`; with no argument
+the first three run. `sort` builds copies of
+`ops/csrc/radix_sort.cu` (the sort behind `device_sort`) with one choice
+changed (the text replacements of RADIX_VARIANTS, each of which must match
+its source exactly once: digit width, tile and block, how a plane reaches
+shared memory, ballots or `__match_any_sync`), checks every copy against
+the plain sort on every plane, and times each with CUDA events at the main
+path's plane counts, at n = 2^24 and 2^28, on full-range random int32 keys
+and on random ranks below n, each with position planes as payload. A radix
+time includes the allocation of its two scratch sets, as `radix_sort`
+makes them. The variants run in order, then in reverse order, so a drift
+of the card's clock shows as a gap between the two times of one variant.
+`bitonic` does the same for copies of `ops/csrc/bitonic.cu` (VARIANTS,
+checked on their keys: the network is unstable) beside the plain sort; a
+bitonic time includes the copy of the input planes, as `bitonic_sort`
+makes one.
 
 `dest` does the same for `ss_radix_dest` of `ops/csrc/radix.cu`
 (DEST_VARIANTS: how the lanes of a bin find each other, the form of the
@@ -23,6 +27,9 @@ a thread may take): for every copy it prints what `cuobjdump` says of the
 build (registers, stack, machine operations a segment), holds it against
 `plain_dest`, then times it at n = 2^28, shift 24, on random, two-bin and
 one-bin keys at tiles 1024, 2048 and 8192, two readings as above.
+
+`earlier` times the radix sort against an earlier design of it, whose
+source the caller puts at EARLIER_SOURCE (`earlier_main`).
 
 The copies are written to and built in `stringsearch_torch/_build/variants/`.
 Needs a CUDA device.
@@ -57,26 +64,38 @@ VARIANTS = {
 
 _TILE = "constexpr int kTile = 16384;"
 _THREADS = "constexpr int kThreads = 512;"
-# first statement of `lanes_of_digit`; a return in its line leaves the eight
+_DIGITS = "constexpr int kDigitBits = 8;"
+_LOAD = "constexpr int kLoad = 0;"
+_WINDOW = "constexpr int kWindow = 16;"
+# first statement of `lanes_of_digit`; a return in its line leaves the
 # ballots unreached
 _BALLOTS = "  unsigned peers = __ballot_sync(kFull, live);\n"
 _MATCH_ANY = ("  return __match_any_sync(kFull, live ? b : kBins); "
               "unsigned peers = 0;\n")
-_BLOCKS = "constexpr int kScatterBlocks = 512 / kThreads;"
+_BLOCKS = "constexpr int kPassBlocks = 512 / kThreads;"
 
 
-def _radix(tile=None, threads=None, resident=None, match_any=False) -> tuple:
-    """Edits of radix_sort.cu: the tile (keys per block; a thread ranks
-    tile / threads of them), the block, the resident threads per SM that
-    cap the scatter kernel's registers, and how the lanes of one digit find
-    each other."""
+def _radix(digits=None, tile=None, threads=None, resident=None, load=None,
+           window=None, match_any=False) -> tuple:
+    """Edits of radix_sort.cu: the digit width, the tile (keys per block; a
+    thread ranks tile / threads of them), the block, the resident threads
+    per SM that cap the pass kernel's registers and set its grid, how a
+    plane reaches shared memory (0 TMA, 1 `cp.async`, 2 registers), the
+    predecessors the look-back reads at once, and how the lanes of one
+    digit find each other."""
     edits = []
+    if digits:
+        edits.append((_DIGITS, _DIGITS.replace("8", str(digits))))
     if tile:
         edits.append((_TILE, _TILE.replace("16384", str(tile))))
     if threads:
         edits.append((_THREADS, _THREADS.replace("512", str(threads))))
     if resident:
         edits.append((_BLOCKS, _BLOCKS.replace("512", str(resident))))
+    if load is not None:
+        edits.append((_LOAD, _LOAD.replace("0", str(load))))
+    if window:
+        edits.append((_WINDOW, _WINDOW.replace("16", str(window))))
     if match_any:
         edits.append((_BALLOTS, _MATCH_ANY))
     return tuple(edits)
@@ -84,17 +103,19 @@ def _radix(tile=None, threads=None, resident=None, match_any=False) -> tuple:
 
 RADIX_VARIANTS = {
     "radix as built": (),
+    "radix digits 10": _radix(digits=10),
+    "radix digits 11 tile 8192": _radix(digits=11, tile=8192),
+    "radix cp.async loads": _radix(load=1),
+    "radix register loads": _radix(load=2),
+    "radix look-back window 1": _radix(window=1),
+    "radix look-back window 4": _radix(window=4),
     "radix match_any": _radix(match_any=True),
     "radix tile 16384 threads 1024": _radix(threads=1024, resident=1024),
-    "radix tile 32768 threads 1024": _radix(tile=32768, threads=1024,
-                                            resident=1024),
+    "radix tile 16384 threads 1024 cp.async loads": _radix(
+        threads=1024, resident=1024, load=1),
     "radix tile 8192 threads 256": _radix(tile=8192, threads=256),
-    "radix tile 8192 threads 256 one block": _radix(tile=8192, threads=256,
-                                                    resident=256),
-    "radix tile 8192 threads 512": _radix(tile=8192, resident=1024),
-    "radix tile 4096 threads 256": _radix(tile=4096, threads=256),
-    "radix tile 4096 threads 256 four blocks": _radix(
-        tile=4096, threads=256, resident=1024),
+    "radix tile 8192 threads 256 digits 11": _radix(tile=8192, threads=256,
+                                                    digits=11),
 }
 SHAPES = ((2, 1), (4, 3), (5, 4))  # (planes, keys): invert, initial, round
 SIZES = (24, 28)
@@ -306,57 +327,138 @@ def dest_main() -> None:
                       f"{first:.4f} / {second:.4f} ms", flush=True)
 
 
+def _keyed_planes(kind: str, n: int, c: int, nk: int, gen) -> tuple:
+    """nk key planes of full-range random int32 ("random") or of random
+    ranks below n ("ranks", the main path's own keys), then c - nk position
+    planes."""
+    hi = 2**31 - 1 if kind == "random" else n
+    lo = -2**31 if kind == "random" else 0
+    planes = [torch.randint(lo, hi, (n,), dtype=torch.int32, device="cuda",
+                            generator=gen) for _ in range(nk)]
+    planes += [torch.arange(n, dtype=torch.int32, device="cuda")
+               for _ in range(c - nk)]
+    return tuple(planes)
+
+
+def _sweep(sorts: dict, sizes, kinds, reps: int = 3) -> None:
+    """Check every sort of `sorts` (name -> (sort, planes compared:
+    "all" or "keys")) against the plain sort, then time each with CUDA
+    events, in order and in reverse order, at the main path's shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    order = list(sorts) + list(reversed(sorts))
+    for log2n in sizes:
+        n = 1 << log2n
+        for kind in kinds:
+            for c, nk in SHAPES:
+                planes = _keyed_planes(kind, n, c, nk, gen)
+                want = bitonic.plain_sort(planes, nk)
+                for name, (sort, compared) in sorts.items():
+                    got = sort(planes, nk)
+                    upto = c if compared == "all" else nk
+                    if not all(torch.equal(g, w)
+                               for g, w in zip(got[:upto], want[:upto])):
+                        raise RuntimeError(f"variant {name!r} sorts wrongly")
+                    del got
+                del want
+                times = {name: [] for name in sorts}
+                for name in order:
+                    times[name].append(
+                        _ms(lambda: sorts[name][0](planes, nk), reps))
+                label = f"2^{log2n} {kind} C={c} keys={nk}"
+                for name, (first, second) in times.items():
+                    print(f"{label} {name:40s} {first:.4f} / {second:.4f} ms",
+                          flush=True)
+                del planes
+                torch.cuda.empty_cache()
+
+
 def sort_main() -> None:
-    """Check and time every copy of the two sort kernels."""
-    # name -> (sort of planes by their first nk, planes compared exactly)
+    """Check and time every copy of the radix sort."""
     sorts = {}
     for name in RADIX_VARIANTS:
         lib = radix_sort.build(name.replace(" ", "_"), variant_source(name))
         sorts[name] = (lambda planes, nk, lib=lib:
                        radix_sort.launch_sort(lib, planes, nk), "all")
+    _sweep(sorts, SIZES, ("random", "ranks"))
+
+
+def bitonic_main() -> None:
+    """Check and time every copy of the bitonic sort, beside the plain
+    sort."""
+    sorts = {}
     for name in VARIANTS:
         lib = bitonic.build("bitonic_" + name.replace(" ", "_"),
                             variant_source(name))
         sorts["bitonic " + name] = (lambda planes, nk, lib=lib:
                                     _bitonic_sorted(lib, planes, nk), "keys")
+    sorts["plain sort"] = (bitonic.plain_sort, "all")
+    _sweep(sorts, SIZES, ("random",))
+
+
+# where `earlier` finds the source of the design to compare with
+EARLIER_SOURCE = os.path.join(_build.BUILD_DIR, "earlier", "radix_sort.cu")
+
+
+def earlier_main() -> None:
+    """The radix sort against an earlier design of it, built from
+    EARLIER_SOURCE (a `radix_sort.cu` with the same C interface, for
+    example the parent commit's, `git show HEAD~1:<path> > <file>`): both
+    checked against the plain sort, then timed at 2^28 in turns, plain,
+    earlier, now, now, earlier, plain, on full-range random keys and on
+    ranks below n, beside the function's bound and each design's own
+    bytes over 3.35 TB/s."""
+    if not os.path.exists(EARLIER_SOURCE):
+        raise SystemExit(f"no earlier source at {EARLIER_SOURCE}")
+    earlier = radix_sort.build("earlier_radix_sort", EARLIER_SOURCE)
+    now = radix_sort.load_library()
+    sorts = {
+        "plain sort": bitonic.plain_sort,
+        "earlier": lambda p, nk: radix_sort.launch_sort(earlier, p, nk),
+        "now": lambda p, nk: radix_sort.launch_sort(now, p, nk),
+    }
+    turns = ("plain sort", "earlier", "now", "now", "earlier", "plain sort")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    order = list(sorts) + list(reversed(sorts))
-    for log2n in SIZES:
-        n = 1 << log2n
-        for c, nk in SHAPES:
-            planes = [torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
-                                    device="cuda", generator=gen)
-                      for _ in range(nk)]
-            planes += [torch.arange(n, dtype=torch.int32, device="cuda")
-                       for _ in range(c - nk)]
-            planes = tuple(planes)
+    n = 1 << 28
+    rate = 3.35e12
+    # the main path's shapes, and the six-plane launch of a `wide_sort`
+    for kind in ("random", "ranks"):
+        for c, nk in SHAPES + ((6, 5),):
+            planes = _keyed_planes(kind, n, c, nk, gen)
             want = bitonic.plain_sort(planes, nk)
-            for name, (sort, compared) in sorts.items():
+            for name, sort in sorts.items():
                 got = sort(planes, nk)
-                upto = c if compared == "all" else nk
-                if not all(torch.equal(g, w)
-                           for g, w in zip(got[:upto], want[:upto])):
-                    raise RuntimeError(f"variant {name!r} sorts wrongly")
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise RuntimeError(f"{name} sorts wrongly")
                 del got
             del want
             times = {name: [] for name in sorts}
-            for name in order:
-                times[name].append(
-                    _ms(lambda: sorts[name][0](planes, nk)))
-            plain = _ms(lambda: bitonic.plain_sort(planes, nk))
-            for name, (first, second) in times.items():
-                print(f"2^{log2n} C={c} keys={nk} {name:28s} "
-                      f"{first:.3f} / {second:.3f} ms", flush=True)
-            print(f"2^{log2n} C={c} keys={nk} {'plain sort':28s} "
-                  f"{plain:.3f} ms", flush=True)
+            for name in turns:
+                times[name].append(_ms(lambda: sorts[name](planes, nk)))
+            live = radix_sort.plan(planes, nk)[1]
+            ms = {
+                "bound": 8 * c * n / rate * 1e3,
+                "earlier design bytes": 4 * nk * (2 * c + 1) * 4 * n
+                / rate * 1e3,
+                "design bytes": radix_sort.design_bytes(n, c, nk, live)
+                / rate * 1e3,
+            }
+            print(f"2^28 {kind} C={c} keys={nk} "
+                  + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
+                              for k, v in times.items())
+                  + f"; live passes {sum(live)} of {len(live)}; "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()),
+                  flush=True)
             del planes
             torch.cuda.empty_cache()
 
 
 def main(argv=None) -> None:
-    families = {"sort": sort_main, "dest": dest_main}
-    chosen = list(sys.argv[1:] if argv is None else argv) or list(families)
+    families = {"sort": sort_main, "bitonic": bitonic_main,
+                "dest": dest_main, "earlier": earlier_main}
+    chosen = list(sys.argv[1:] if argv is None else argv) or [
+        "sort", "bitonic", "dest"]
     for name in chosen:
         if name not in families:
             raise SystemExit(f"unknown family {name!r}: {sorted(families)}")

@@ -1,12 +1,14 @@
 """The radix sort behind `device_sort`: its plain version and the kernel.
 
-`plain_radix_sort` repeats the kernel's arithmetic pass by pass (digit with
-the sign flip, bin-major table, exclusive scan, in-tile ranks, scatter
-between two buffer sets) and is held here against `jax.lax.sort` on the CPU,
-exactly, on every plane: both are stable, so payload order is compared too.
-Tests that launch the kernel are marked `cuda` and skip without a card; on a
-machine with one, run them with
-`python -m pytest --noconftest -m cuda tests/test_torch_radix_sort.py`
+`plain_radix_sort` repeats the kernel's arithmetic pass by pass (digits of
+the bits XOR 0x80000000 at each digit width, the histogram of every pass
+from one read of the keys, the skip of a constant digit, bin starts plus
+the keys of the bin in earlier tiles plus in-tile ranks, a scatter between
+two buffer sets chosen so that the last live pass writes the second) and is
+held here against `jax.lax.sort` on the CPU, exactly, on every plane: both
+are stable, so payload order is compared too. Tests that launch the kernel
+are marked `cuda` and skip without a card; on a machine with one, run them
+with `python -m pytest --noconftest -m cuda tests/test_torch_radix_sort.py`
 (this file imports jax only inside the tests that compare with it).
 """
 
@@ -23,7 +25,7 @@ INT32_MIN = np.iinfo(np.int32).min
 INT32_MAX = np.iinfo(np.int32).max
 
 SIZES = [0, 1, 2, 255, 256, 257, 1100, 4096 + 17, (1 << 16) + 12345]
-KERNEL_TILE = 16384  # kTile of csrc/radix_sort.cu
+KERNEL_TILE = radix_sort.TILE
 SHAPES = [(c, nk) for c in range(1, 7) for nk in range(1, c + 1)]
 # some divide some of the sizes, some divide none
 TILES = [64, 100, 256, KERNEL_TILE]
@@ -141,6 +143,117 @@ def test_plain_radix_sort_leaves_its_operands():
     _assert_planes_equal(ops, arrays)
 
 
+# the digit widths the kernel can be built with (kDigitBits; the sweep's
+# variants take 10 and 11)
+DIGIT_WIDTHS = [8, 10, 11]
+# inputs that reach the new arithmetic: a skipped pass, all passes skipped
+# but one copy, a plane of two live bits, ranks whose top digit is
+# constant, both ends of the range and negative keys in every key plane
+SKIP_KINDS = ["constant key plane", "all planes constant", "two live bits",
+              "ranks below 2^k", "extremes and negatives"]
+SMALL_TILE = 64
+# 2, a tile, a tile and one, and a size no tile divides
+SKIP_SIZES = [2, SMALL_TILE, SMALL_TILE + 1, 3 * SMALL_TILE + 37]
+
+
+def _skip_planes(kind, rng, n, c=4, num_keys=3):
+    """c planes of one length, the first num_keys keys of `kind`, the rest
+    positions and random payloads."""
+    def keys():
+        if kind == "constant key plane":
+            # the middle key plane constant, the others with heavy ties
+            return [rng.integers(-3, 3, n), np.full(n, -123456),
+                    rng.integers(INT32_MIN, INT32_MAX, n, endpoint=True)]
+        if kind == "all planes constant":
+            return [np.full(n, v) for v in (7, INT32_MIN, -1)]
+        if kind == "two live bits":
+            # a partition index, 0..3, leading the keys
+            return [rng.integers(0, 4, n), rng.integers(0, 1 << 12, n),
+                    rng.integers(INT32_MIN, INT32_MAX, n, endpoint=True)]
+        if kind == "ranks below 2^k":
+            return [rng.integers(0, 1 << 20, n), rng.integers(0, 1 << 9, n),
+                    rng.integers(0, 1 << 22, n)]
+        if kind == "extremes and negatives":
+            ends = np.array([INT32_MIN, INT32_MIN + 1, -1 << 20, -1, 0,
+                             INT32_MAX - 1, INT32_MAX])
+            return [rng.choice(ends, n), rng.integers(INT32_MIN, 0, n),
+                    rng.choice(ends, n)]
+        raise AssertionError(kind)
+
+    planes = [k.astype(np.int32) for k in keys()][:num_keys]
+    planes.append(np.arange(n, dtype=np.int32))
+    while len(planes) < c:
+        planes.append(rng.integers(-50, 50, n).astype(np.int32))
+    return planes
+
+
+@pytest.mark.parametrize("digit_bits", DIGIT_WIDTHS)
+@pytest.mark.parametrize("n", SKIP_SIZES)
+@pytest.mark.parametrize("kind", SKIP_KINDS)
+def test_plain_radix_sort_skips_and_digit_widths(kind, n, digit_bits):
+    rng = np.random.default_rng(7 * n + digit_bits)
+    arrays = _skip_planes(kind, rng, n)
+    got = radix_sort.plain_radix_sort(_tensors(arrays), 3, tile=SMALL_TILE,
+                                      digit_bits=digit_bits)
+    _assert_planes_equal(got, _lax_sort(arrays, 3))
+
+
+@pytest.mark.parametrize("digit_bits,live", [
+    (8, [True, False, False, False]),
+    (10, [True, False, False, False]),
+    (11, [True, False, False]),
+])
+def test_plan_skips_the_constant_digits_of_a_partition_index(digit_bits,
+                                                             live):
+    """A partition index 0..3 has two live bits: one pass of its digits
+    runs, the others are constant."""
+    part = torch.arange(1000, dtype=torch.int32) % 4
+    assert radix_sort.plan([part], 1, digit_bits)[1] == live
+
+
+@pytest.mark.parametrize("digit_bits,live", [
+    (8, [True, True, True, False]),
+    (10, [True, True, True, False]),
+    (11, [True, True, True]),
+])
+def test_plan_skips_the_top_digit_of_small_ranks(digit_bits, live):
+    """Ranks below 2^24 (the positions of a 16 MiB text) leave the top
+    8-bit digit constant, those below 2^30 the top 10-bit one (two bits);
+    11-bit digits split 32 bits in three live passes."""
+    ranks = torch.tensor([0, 5, (1 << 24) - 1, 1 << 21, 77], dtype=torch.int32)
+    assert radix_sort.plan([ranks], 1, digit_bits)[1] == live
+
+
+def test_plan_keeps_one_pass_when_every_digit_is_constant():
+    planes = [torch.full((9,), -5, dtype=torch.int32),
+              torch.full((9,), 3, dtype=torch.int32)]
+    hist, live = radix_sort.plan(planes, 2)
+    assert live == [False] * 7 + [True]
+    assert hist.shape == (8, 256) and bool((hist.sum(1) == 9).all())
+
+
+def test_plain_radix_sort_refuses_bad_digit_widths():
+    for bits in (0, 17):
+        with pytest.raises(ValueError, match="digit_bits"):
+            radix_sort.plain_radix_sort(_ok_planes(), 1, digit_bits=bits)
+
+
+def test_design_bytes_count_the_live_passes():
+    n, c, nk = 1 << 20, 5, 4
+    words = (n // radix_sort.TILE) * 256 * 8
+    assert radix_sort.design_bytes(n, c, nk, [True] * 16) == (
+        4 * n * nk + words + 16 * (8 * c * n + 3 * words))
+    assert radix_sort.design_bytes(n, c, nk, [False] * 16) == 4 * n * nk + words
+
+
+def test_the_plain_version_takes_the_kernels_constants():
+    """DIGIT_BITS and TILE are the kernel's kDigitBits and kTile."""
+    with open(radix_sort._SOURCE) as f:
+        src = f.read()
+    assert f"constexpr int kDigitBits = {radix_sort.DIGIT_BITS};" in src
+    assert f"constexpr int kTile = {radix_sort.TILE};" in src
+
+
 def _engine_initial(text_bytes):
     """The operands of the engine's initial sort: three packed keys and the
     position."""
@@ -246,13 +359,13 @@ def test_the_two_oracle_sources_are_byte_identical():
         assert f.read() == g.read()
 
 
-RADIX_VARIANTS = ["radix match_any", "radix tile 16384 threads 1024",
-                  "radix tile 32768 threads 1024",
+RADIX_VARIANTS = ["radix digits 10", "radix digits 11 tile 8192",
+                  "radix cp.async loads", "radix register loads",
+                  "radix look-back window 1", "radix look-back window 4",
+                  "radix match_any", "radix tile 16384 threads 1024",
+                  "radix tile 16384 threads 1024 cp.async loads",
                   "radix tile 8192 threads 256",
-                  "radix tile 8192 threads 256 one block",
-                  "radix tile 8192 threads 512",
-                  "radix tile 4096 threads 256",
-                  "radix tile 4096 threads 256 four blocks"]
+                  "radix tile 8192 threads 256 digits 11"]
 
 
 @pytest.mark.parametrize("name", RADIX_VARIANTS)
@@ -304,6 +417,33 @@ def test_kernel_key_kinds(cuda, kind, c, num_keys, n):
     rng = np.random.default_rng(n + c)
     _kernel_equals_plain(_kind_planes(kind, rng, n, c, num_keys), num_keys,
                          cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, KERNEL_TILE, KERNEL_TILE + 1,
+                               3 * KERNEL_TILE + 37, (1 << 20) + 7])
+@pytest.mark.parametrize("kind", SKIP_KINDS)
+def test_kernel_skips_constant_digits(cuda, kind, n):
+    rng = np.random.default_rng(n + len(kind))
+    arrays = _skip_planes(kind, rng, n, c=5, num_keys=3)
+    _kernel_equals_plain(arrays, 3, cuda)
+    ops = _tensors(arrays, cuda)
+    got = radix_sort.radix_sort(ops, 3)
+    want = radix_sort.plain_radix_sort(ops, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_planes_off_16_bytes(cuda):
+    """A plane that starts 4 bytes into its storage (the bulk loads need
+    16) is copied and sorted."""
+    base = torch.arange(70001, 0, -1, dtype=torch.int32, device=cuda)
+    k, v = base[1:], torch.arange(70000, dtype=torch.int32, device=cuda)
+    assert k.data_ptr() % 16 != 0
+    got = radix_sort.radix_sort((k, v), 1)
+    want = bitonic.plain_sort((k, v), 1)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
