@@ -10,9 +10,10 @@ It drives the port's main path once at the benchmark's size and fails
 present. Phases, each printed with its result and time:
 
   0. versions, the card's name and power limit;
-  1. build the three kernel libraries from the sources in the checkout:
-     the radix sort behind `device_sort`, the bitonic sort and the
-     radix-partition kernels (one nvcc per source, all started together);
+  1. build the four kernel libraries from the sources in the checkout:
+     the radix sort behind `device_sort`, the bitonic sort, the
+     radix-partition kernels and the steps between the sorts (one nvcc per
+     source, all started together);
   2. both sort kernels against the plain sort at 2^24 and 2^24 + 12345,
      tolerance 0: the radix sort, which is stable, element for element on
      every plane (heavy ties under a random payload, INT32_MIN/MAX keys,
@@ -26,7 +27,9 @@ present. Phases, each printed with its result and time:
      payload, beside the sort's bound and the radix design's own bytes;
   3. `build_suffix_array(enwik_like(2^28), device="cuda")`, then the
      device verify and the host oracle's sufcheck; over the build the
-     radix sort's launch count must be > 0 and the bitonic sort's 0;
+     radix sort's launch count must be > 0 and the bitonic sort's 0, and
+     each of the three step kernels' (`ops/steps.py`: `pack_keys`,
+     `shift_planes`, `head_ranks`) > 0;
   4. the SA byte-exact against the C++ oracle on enwik-like 2^24 text, the
      regression corpus and adversarial inputs that reach compaction;
   5. 256 LCS, 256 exact and 16 single-byte queries on the 2^28 index,
@@ -102,7 +105,20 @@ present. Phases, each printed with its result and time:
      prints its wall, the bytes that crossed processes, the transport's
      seconds, the bytes per shard against the comm model and its peak
      memory. The processes' exact searches and single-byte counts must
-     equal the oracle's, and every answer must agree across them.
+     equal the oracle's, and every answer must agree across them;
+ 15. the three step kernels against their plain versions, tolerance 0:
+     `pack_keys` on phase 3's text (depth 12, flat and in four chunks),
+     `head_ranks` on its own sort of those operands, `shift_planes` of a
+     fan-4 round at h = 12 on the text-order ranks of that sort, and
+     `head_ranks` on the round's sort and on one group over all 2^28
+     slots (the longest look-back); each timed with CUDA events beside
+     its plain version and its bytes bound, `head_ranks` also beside
+     `torch.cummax` of `where(flag, j, -1)` (the scan alone); then the edge
+     cases of tests/test_torch_steps.py: n from 1 to 2^20 + 12345 around
+     each kernel's tile, chunks 4 and near 1000, depths 4, 12 and 24,
+     fans 2 to 4 with h at and past the chunk, all-equal keys over 2^24
+     slots, all-distinct keys, groups that start only at tile starts,
+     int32 and int64.
 Phases 9, 12 and 13 print the seconds of each command or step.
 Phases 7 to 10 each zero the sort kernels' launch counts first and need
 the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 to 14
@@ -423,7 +439,7 @@ def phase3_build():
     import stringsearch_torch as st
     from stringsearch_torch import oracle
     from stringsearch_torch.harness.corpus import enwik_like
-    from stringsearch_torch.ops import bitonic, radix_sort
+    from stringsearch_torch.ops import bitonic, radix_sort, steps
 
     n = 1 << LOG2N
     t0 = time.perf_counter()
@@ -436,19 +452,24 @@ def phase3_build():
     torch.cuda.reset_peak_memory_stats()
     radix_sort.launches = 0
     bitonic.launches = 0
+    for k in steps.launches:
+        steps.launches[k] = 0
     t0 = time.perf_counter()
     sa = st.build_suffix_array(text, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     launches = radix_sort.launches
     bitonic_launches = bitonic.launches
+    step_launches = dict(steps.launches)
     peak = torch.cuda.max_memory_allocated()
     say(f"phase 3: build n={n}: {build_s:.4f} s, {n / build_s:.1f} B/s, "
         f"peak CUDA memory {peak} B ({peak / 2**30:.2f} GiB), "
         f"radix sort launches {launches}, bitonic launches "
-        f"{bitonic_launches}")
+        f"{bitonic_launches}, step kernel launches {step_launches}")
     check(launches > 0, "the build launched no radix sort")
     check(bitonic_launches == 0, "the build launched the bitonic kernel")
+    for k, count in step_launches.items():
+        check(count > 0, f"the build launched no {k} kernel")
     check(sa.sa.device.type == "cuda" and sa.sa.dtype == torch.int32,
           "SA is not an int32 CUDA tensor")
 
@@ -473,7 +494,8 @@ def phase3_build():
     return sa, text_np, sa_host, {"n": n, "build_s": build_s,
                                   "rebuild_s": rebuild_s, "peak_bytes": peak,
                                   "launches": launches,
-                                  "bitonic_launches": bitonic_launches}
+                                  "bitonic_launches": bitonic_launches,
+                                  "step_launches": step_launches}
 
 
 def phase4_exact() -> None:
@@ -562,7 +584,7 @@ def phase1_build_kernels() -> None:
     """Build and load the three kernel libraries, one nvcc each, side by
     side."""
     from concurrent.futures import ThreadPoolExecutor
-    from stringsearch_torch.ops import bitonic, radix, radix_sort
+    from stringsearch_torch.ops import bitonic, radix, radix_sort, steps
 
     def timed(load):
         t0 = time.perf_counter()
@@ -570,14 +592,15 @@ def phase1_build_kernels() -> None:
         return time.perf_counter() - t0
 
     libraries = (("the radix sort", radix_sort), ("the bitonic sort", bitonic),
-                 ("the radix-partition kernels", radix))
+                 ("the radix-partition kernels", radix),
+                 ("the step kernels", steps))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         times = [pool.submit(timed, module.load_library)
                  for _, module in libraries]
         for (what, _), t in zip(libraries, times):
             say(f"phase 1: built and loaded {what} in {t.result():.2f} s")
-    say(f"phase 1: three libraries built side by side in "
+    say(f"phase 1: four libraries built side by side in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -1624,6 +1647,173 @@ def phase14_multihost(text_np, sa_host, card: str) -> dict:
             "per_process": [{k: r[k] for k in keep} for r in reports]}
 
 
+def _step_edge_cases(gen) -> dict:
+    """The edge cases of tests/test_torch_steps.py, each kernel against its
+    plain version: {kernel: (cases, max_abs_err)}."""
+    import torch
+    from stringsearch_torch.ops import steps
+
+    def sizes(tile):
+        return (1, 2, 3, tile - 1, tile, tile + 1, (1 << 20) + 12345)
+
+    def chunks(n):
+        out = [None] + ([4] if n % 4 == 0 and n > 4 else [])
+        divisors = [d for d in range(2, min(n, 5000)) if n % d == 0]
+        if divisors:
+            out.append(min(divisors, key=lambda d: abs(d - 1000)))
+        return out
+
+    done = {"pack_keys": [0, 0], "shift_planes": [0, 0], "head_ranks": [0, 0]}
+
+    def held(kernel, got, want):
+        done[kernel][0] += 1
+        done[kernel][1] = max(done[kernel][1], _exact_err(got, want))
+
+    for n in sizes(steps.PACK_TILE) + (4000,):
+        text = torch.randint(0, 256, (n,), generator=gen,
+                             dtype=torch.uint8).to("cuda")
+        for chunk in chunks(n):
+            for depth in (4, 12, 24):
+                for idx in (torch.int32, torch.int64):
+                    held("pack_keys", steps.pack_keys(text, depth, chunk, idx),
+                         steps.plain_pack_keys(text, depth, chunk, idx))
+    for n in sizes(steps.SHIFT_TILE) + (4000,):
+        for idx in (torch.int32, torch.int64):
+            rank = torch.randint(-5, 1 << 20, (n,), generator=gen,
+                                 dtype=idx).to("cuda")
+            for chunk in chunks(n):
+                c = chunk or n
+                for fan in (2, 3, 4):
+                    for h in (1, 12, c, c + 5):
+                        shifts = [min(h, c // k + 1) * k
+                                  for k in range(1, fan)]
+                        held("shift_planes",
+                             steps.shift_planes(rank, shifts, chunk),
+                             steps.plain_shift_planes(rank, shifts, chunk))
+            shifts = range(1, 12)  # build_ints_with_isa at depth 12
+            held("shift_planes", steps.shift_planes(rank, shifts),
+                 steps.plain_shift_planes(rank, shifts))
+    for n in sizes(steps.SCAN_TILE) + (1 << 24,):
+        for idx in (torch.int32, torch.int64):
+            j = torch.arange(n, device="cuda", dtype=idx)
+            sa = torch.randperm(n, generator=gen).to(idx).to("cuda")
+            rand = torch.sort(torch.randint(0, max(n // 3, 1), (n,),
+                                            generator=gen))[0].to("cuda")
+            for keys in ([rand.to(torch.int32), j % 3],
+                         [torch.zeros(n, dtype=torch.int32, device="cuda")],
+                         [j], [(j // steps.SCAN_TILE).to(torch.int32)], []):
+                out = keys + [sa]
+                got = steps.head_ranks(out)
+                want = steps.plain_head_ranks(out)
+                held("head_ranks", [got[1]], [want[1]])
+                done["head_ranks"][1] = max(
+                    done["head_ranks"][1], abs(int(got[2]) - int(want[2])))
+    torch.cuda.synchronize()
+    return {k: tuple(v) for k, v in done.items()}
+
+
+def phase15_steps(text_np, card: str) -> dict:
+    """The three step kernels against their plain versions at 2^28 on phase
+    3's text and on the edge cases, with times. Returns one report per
+    kernel."""
+    import torch
+    from stringsearch_torch.engines import doubling
+    from stringsearch_torch.ops import steps
+    from stringsearch_torch.ops.bitonic import device_sort
+
+    n = len(text_np)
+    text = torch.from_numpy(text_np.copy()).to("cuda")
+    reports = {k: {"shapes": []} for k in steps.launches}
+
+    def held(kernel, shape, got, want, fn, plain, nbytes, library=None):
+        err = _exact_err(got, want)
+        ms = cuda_ms(fn, 5)
+        plain_ms = cuda_ms(plain, 2)
+        library_ms = round(cuda_ms(library, 3), 4) if library else None
+        bounds = bound(nbytes, 0)
+        say(f"phase 15: {kernel} {shape} n=2^{LOG2N}: max_abs_err {err} "
+            f"(tolerance 0); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + (f", library {library_ms} ms" if library else "")
+            + f"; bound {bounds['bound_ms']} ms ({nbytes} B), share "
+            f"{bounds['bound_ms'] / ms:.3f} [{card}]")
+        check(err == 0, f"{kernel} {shape} disagrees with its plain version")
+        reports[kernel]["shapes"].append({
+            "shape": shape, "n": n, "max_abs_err": err, "ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 4), "library_ms": library_ms,
+            **bounds})
+
+    def heads(what, out):
+        got = steps.head_ranks(out)
+        want = steps.plain_head_ranks(out)
+        check(int(got[2]) == int(want[2]),
+              f"head_ranks {what}: count {int(got[2])} against "
+              f"{int(want[2])}")
+        # the scan alone as one PyTorch call, on the flags of this input
+        flag = torch.ones(n, dtype=torch.bool, device="cuda")
+        flag[1:] = False
+        for ks in out[:-1]:
+            flag[1:] |= ks[1:] != ks[:-1]
+        j = torch.arange(n, dtype=out[-1].dtype, device="cuda")
+        marked = torch.where(flag, j, -1)
+        del flag, j
+        keys = len(out) - 1
+        held("head_ranks",
+             f"{what}: {keys} key planes ({int(want[2])} tied)",
+             [got[1]], [want[1]], lambda: steps.head_ranks(out),
+             lambda: steps.plain_head_ranks(out),
+             sum(p.element_size() for p in out[:-1]) * n
+             + out[-1].element_size() * n,
+             lambda: torch.cummax(marked, 0))
+        del got, want, marked
+        torch.cuda.empty_cache()
+
+    planes = steps.pack_keys(text, 12)
+    held("pack_keys", "depth 12", planes, steps.plain_pack_keys(text, 12),
+         lambda: steps.pack_keys(text, 12),
+         lambda: steps.plain_pack_keys(text, 12), 17 * n)
+    parts = steps.pack_keys(text, 12, n // 4)
+    held("pack_keys", "depth 12, 4 chunks", parts,
+         steps.plain_pack_keys(text, 12, n // 4),
+         lambda: steps.pack_keys(text, 12, n // 4),
+         lambda: steps.plain_pack_keys(text, 12, n // 4), 21 * n)
+    del parts
+    out = device_sort(planes, 3)
+    del planes
+    torch.cuda.empty_cache()
+    heads("initial", out)
+    _, rank_s, _ = steps.head_ranks(out)
+    rank = doubling._scatter_to_text_order(out[-1], rank_s)
+    del out, rank_s
+    shifts = [12, 24, 36]
+    planes = steps.shift_planes(rank, shifts)
+    held("shift_planes", "fan 4, h = 12", planes,
+         steps.plain_shift_planes(rank, shifts),
+         lambda: steps.shift_planes(rank, shifts),
+         lambda: steps.plain_shift_planes(rank, shifts), 20 * n)
+    out = device_sort((rank, *planes), 4)
+    del rank, planes
+    torch.cuda.empty_cache()
+    heads("round", out)
+    del out, text
+    torch.cuda.empty_cache()
+    # the longest look-back: one group over every slot
+    heads("all equal", [torch.zeros(n, dtype=torch.int32, device="cuda"),
+                        torch.arange(n, dtype=torch.int32, device="cuda")])
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    edges = _step_edge_cases(torch.Generator().manual_seed(15))
+    for kernel, (cases, err) in edges.items():
+        say(f"phase 15: {kernel} on {cases} edge cases: max_abs_err {err} "
+            f"(tolerance 0)")
+        check(err == 0, f"{kernel} disagrees with its plain version on an "
+                        f"edge case")
+        reports[kernel]["edge_cases"] = cases
+        reports[kernel]["edge_max_abs_err"] = err
+    say(f"phase 15: edge cases in {time.perf_counter() - t0:.2f} s")
+    return reports
+
+
 def main() -> int:
     # One card: the first that CUDA would use, and the only one torch sees.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -1697,7 +1887,11 @@ def main() -> int:
         t0 = time.perf_counter()
         multihost_report = phase14_multihost(text_np, sa_host, card)
         say(f"phase 14: passed in {time.perf_counter() - t0:.2f} s")
-        del text_np, sa_host
+        del sa_host
+        t0 = time.perf_counter()
+        steps_report = phase15_steps(text_np, card)
+        say(f"phase 15: passed in {time.perf_counter() - t0:.2f} s")
+        del text_np
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1
@@ -1753,6 +1947,35 @@ def main() -> int:
             **more,
         }
 
+    # the steps between the sorts: no Pallas kernel, so each entry names,
+    # in prose, the JAX function whose jnp ops XLA fuses there. Headline:
+    # the first shape timed (head_ranks: the second, after the round's
+    # sort, the larger of the two on the main path).
+    step_kernels = []
+    for name, what in (("pack_keys", "_pack4_keys, doubling.py:83"),
+                       ("shift_planes", "_shift_ranks, doubling.py:116"),
+                       ("head_ranks", "_ranks_sorted_only, doubling.py:151")):
+        rep = steps_report[name]
+        head = rep["shapes"][1 if name == "head_ranks" else 0]
+        step_kernels.append({
+            "name": f"steps_{name}",
+            "route": "cuda",
+            "source": "stringsearch_torch/ops/csrc/steps.cu",
+            "replaces": f"no pl.pallas_call: the jnp ops of {what} in the "
+                        f"JAX package's engines, which XLA fuses",
+            "launches": build["step_launches"][name],
+            "max_abs_err": max([s["max_abs_err"] for s in rep["shapes"]]
+                               + [rep["edge_max_abs_err"]]),
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "timed_shape": head["shape"],
+            "shapes": rep["shapes"],
+            "edge_cases": rep["edge_cases"],
+        })
+
     say(json.dumps({"kernels": [
         sort_entry("radix_sort", "stringsearch_torch/ops/csrc/radix_sort.cu",
                    build["launches"], probe_launches=probe_sort_launches,
@@ -1766,7 +1989,7 @@ def main() -> int:
                    multihost=multihost_report),
         sort_entry("bitonic_sort", "stringsearch_torch/ops/csrc/bitonic.cu",
                    build["bitonic_launches"]),
-        *radix_kernels]}))
+        *radix_kernels, *step_kernels]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

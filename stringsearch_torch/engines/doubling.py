@@ -16,8 +16,12 @@ on CUDA, the plain chained sort on the CPU, both stable.
 What differs from the JAX package, and why:
   * The loops (`lax.while_loop`, `cond`, `switch`) are host loops that
     read the tied count with one `.item()` per round; `h` is a host int.
-  * Group heads (the reference's `cummax`) come from a cumsum and a
-    scatter (`_segment_heads`).
+  * The steps between the sorts are `ops/steps.py`: `pack_keys`,
+    `shift_planes` and `head_ranks`, each one hand-written kernel on
+    CUDA, where XLA fuses the reference's jnp ops. Group heads (the
+    reference's `cummax`) come on CUDA from `head_ranks`' scan with
+    decoupled look-back; on the CPU, and in the compaction rounds and the
+    bstar engine on both, from a cumsum and a scatter (`_segment_heads`).
   * Packed keys are int32 with bit 31 flipped (`^ 0x80000000`), so signed
     order equals the reference's uint32 order.
   * `_shift_ranks` clamps its shift explicitly (`dynamic_slice` clamped it
@@ -54,11 +58,18 @@ from stringsearch_torch.core.types import (
     as_text_tensor,
 )
 from stringsearch_torch.ops.bitonic import device_sort
+from stringsearch_torch.ops.steps import (
+    BIAS as _BIAS,
+    chunk_len as _chunk_len,
+    head_ranks,
+    heads_and_tied as _heads_and_tied,
+    pack_keys,
+    segment_heads as _segment_heads,
+    shift_planes,
+)
 
 _I32 = torch.int32
 _IDX = (torch.int32, torch.int64)
-# XOR with INT32_MIN flips bit 31: maps uint32 order onto int32 order
-_BIAS = torch.iinfo(torch.int32).min
 
 
 def _sent(dtype) -> int:
@@ -84,38 +95,17 @@ def _iota(n: int, device, dtype=_I32) -> torch.Tensor:
     return torch.arange(n, dtype=dtype, device=device)
 
 
-def _chunk_len(n: int, chunk) -> int:
-    """The chunk length of a build over n bytes: `chunk`, or n itself (at
-    least 1) for the flat build."""
-    if chunk is None:
-        return max(n, 1)
-    if chunk < 1 or n % chunk:
-        raise ValueError(f"chunk={chunk} must be positive and divide n={n}")
-    return chunk
-
-
 def _pack4_keys(text: torch.Tensor, depth: int, chunk=None) -> tuple:
     """depth/4 int32 keys of four RAW text bytes each, zero-padded, biased.
 
     Key k of suffix i is bytes i+4k .. i+4k+3, big-endian, XOR 0x80000000:
     as signed int32 it orders like the reference's uint32 key. The zero
     padding starts at the end of the suffix's chunk: no key reads across
-    a chunk's end.
+    a chunk's end. The key planes of `pack_keys`.
     """
-    n = text.shape[0]
-    chunk = _chunk_len(n, chunk)
-    rows = text.to(_I32).view(n // chunk, chunk)
-    t = torch.cat([rows, rows.new_zeros((rows.shape[0], depth))], 1)
-    keys = []
-    for k in range(depth // 4):
-        o = 4 * k
-        keys.append(
-            (((t[:, o : o + chunk] << 24)
-              | (t[:, o + 1 : o + 1 + chunk] << 16)
-              | (t[:, o + 2 : o + 2 + chunk] << 8)
-              | t[:, o + 3 : o + 3 + chunk]) ^ _BIAS).view(n)
-        )
-    return tuple(keys)
+    planes = pack_keys(text, depth, chunk)
+    lead = len(planes) - 1 - depth // 4
+    return tuple(planes[lead:-1])
 
 
 def _scatter_to_text_order(sa, rank_s):
@@ -132,40 +122,10 @@ def _shift_ranks(rank, h: int, chunk=None):
     The marker is negative (an ended suffix sorts before every continuing
     one) and strictly decreasing in i (two suffixes that both end within
     the window split at once, shorter first). Shifts above the chunk
-    length are clamped to it, where every entry is a marker.
+    length are clamped to it, where every entry is a marker. The first
+    plane of `shift_planes`.
     """
-    n = rank.shape[0]
-    chunk = _chunk_len(n, chunk)
-    h_c = min(h, chunk)
-    tail = -(torch.arange(chunk - h_c, chunk, dtype=rank.dtype,
-                          device=rank.device) + 1)
-    rows = rank.view(n // chunk, chunk)
-    return torch.cat([rows[:, h_c:], tail.expand(rows.shape[0], h_c)],
-                     1).view(n)
-
-
-def _segment_heads(flag, j):
-    """head[i] = the last slot <= i whose `flag` is set (flag[0] must be).
-
-    The reference's `cummax(where(flag, j, -1))`. torch's CUDA cummax is a
-    generic scan that took 44 ms of a 145 ms build at n = 2^24 on an H100,
-    so this is a cumsum, a scatter and a gather instead: each flagged slot
-    writes its index to its segment's entry, every other slot to a private
-    scratch entry, so no two writes meet.
-    """
-    n = j.shape[0]
-    seg = torch.cumsum(flag, 0, dtype=j.dtype) - 1
-    buf = torch.empty((2 * n,), dtype=j.dtype, device=j.device)
-    buf[torch.where(flag, seg, n + j)] = j
-    return buf[seg]
-
-
-def _heads_and_tied(new_flag, j):
-    """head[j] = slot index of j's group head; tied[j] = group size >= 2."""
-    head = _segment_heads(new_flag, j)
-    nxt_head = torch.cat([head[1:], head.new_full((1,), -1)])
-    tied = (head != j) | (nxt_head == head)
-    return head, tied
+    return shift_planes(rank, (h,), chunk)[0]
 
 
 def _ranks_sorted_only(out):
@@ -174,18 +134,9 @@ def _ranks_sorted_only(out):
 
     The text-order rank is not computed here: each round inverts its
     predecessor's ranks just before it needs them, so a build that
-    resolves never pays the last inverse-permutation sort.
+    resolves never pays the last inverse-permutation sort. `head_ranks`.
     """
-    sa_s = out[-1]
-    n = sa_s.shape[0]
-    j = _iota(n, sa_s.device, sa_s.dtype)
-    diff = torch.zeros((max(n - 1, 0),), dtype=torch.bool, device=sa_s.device)
-    for ks in out[:-1]:
-        diff |= ks[1:] != ks[:-1]
-    new_flag = torch.cat(
-        [torch.ones((min(n, 1),), dtype=torch.bool, device=sa_s.device), diff])
-    rank_s, tied = _heads_and_tied(new_flag, j)
-    return sa_s, rank_s, tied.sum()
+    return head_ranks(out)
 
 
 def _initial_sorted(text, depth: int = 24, chunk=None, idx=_I32):
@@ -196,13 +147,9 @@ def _initial_sorted(text, depth: int = 24, chunk=None, idx=_I32):
     comes out in slots [p * chunk, (p + 1) * chunk) and no group of tied
     suffixes spans two chunks.
     """
-    n = text.shape[0]
-    keys = _pack4_keys(text, depth, chunk)
-    j = _iota(n, text.device, idx)
-    if _chunk_len(n, chunk) < n:
-        keys = (torch.div(j, chunk, rounding_mode="floor"),) + keys
-    out = device_sort(keys + (j,), num_keys=len(keys))
-    del keys, j
+    planes = pack_keys(text, depth, chunk, idx)
+    out = device_sort(planes, num_keys=len(planes) - 1)
+    del planes
     return _ranks_sorted_only(out)
 
 
@@ -231,14 +178,11 @@ def _full_round_sorted(rank, h: int, fan: int = 2, chunk=None):
     n = rank.shape[0]
     chunk = _chunk_len(n, chunk)
     # k*h can overflow for huge n: cap h at chunk//k + 1 first, so the
-    # product is <= chunk + k and _shift_ranks clamps the rest
-    keys = (rank,) + tuple(
-        _shift_ranks(rank, min(h, chunk // k + 1) * k, chunk)
-        for k in range(1, fan)
-    )
-    out = device_sort(keys + (_iota(n, rank.device, rank.dtype),),
-                      num_keys=fan)
-    del keys
+    # product is <= chunk + k and shift_planes clamps the rest
+    planes = shift_planes(
+        rank, [min(h, chunk // k + 1) * k for k in range(1, fan)], chunk)
+    out = device_sort((rank, *planes), num_keys=fan)
+    del planes
     return _ranks_sorted_only(out)
 
 
@@ -450,7 +394,7 @@ def build_ints_with_isa(seq, idx=_I32, depth: int = 4,
     The doubling engine over an integer alphabet, the reduced-string
     solver of dc3's tail and of the bstar engine. The initial keys are
     exact: key t of element i is seq[i+t], or the past-the-end marker
-    -(i+1) (`_shift_ranks`), so the initial ranks are exact
+    -(i+1) (`shift_planes`), so the initial ranks are exact
     depth-`depth` classes; one sort of `depth` keys and the position.
     Only the values' order matters, negative values too. A tensor stays
     on its device unless `device` is given; a host array goes to
@@ -472,9 +416,9 @@ def build_ints_with_isa(seq, idx=_I32, depth: int = 4,
     # the markers -(i+1) must sort below every real value: bias the
     # sequence to be non-negative
     seq = seq - seq.min()
-    keys = (seq,) + tuple(_shift_ranks(seq, t) for t in range(1, depth))
-    out = device_sort(keys + (_iota(n, seq.device, idx),), num_keys=depth)
-    del keys
+    planes = shift_planes(seq, range(1, depth))
+    out = device_sort((seq, *planes), num_keys=depth)
+    del planes
     sa_s0, rank_s0, count0 = _ranks_sorted_only(out)
     del out
     return _refine(sa_s0, rank_s0, count0, min(depth, n), levels, fan,

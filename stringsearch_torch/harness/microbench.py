@@ -44,6 +44,7 @@ from stringsearch_torch.engines import doubling as D
 from stringsearch_torch.harness.corpus import enwik_like
 from stringsearch_torch.ops import radix
 from stringsearch_torch.ops.bitonic import device_sort, plain_sort
+from stringsearch_torch.ops.steps import pack_keys
 
 _I32 = torch.int32
 
@@ -318,8 +319,7 @@ def bucketed_initial(log_n: int, reps: int = 3, device="cuda") -> dict:
     """
     n = 1 << log_n
     text = _text(n, device)
-    w0, w1, w2 = D._pack4_keys(text, 12)
-    j = torch.arange(n, dtype=_I32, device=device)
+    w0, w1, w2, j = pack_keys(text, 12)
     rows = 4096
     cols = n // rows
     out = {"n": n, "rows": rows, "device": _device_name(device)}

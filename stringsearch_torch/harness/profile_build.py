@@ -30,12 +30,22 @@ card of its own, on nccl too, with one process a card; each process
 prints its build walls, the bytes that crossed processes, the transport's
 seconds and its peak memory. Needs a CUDA device.
 
+The steps between the sorts run on their kernels (`ops/steps.py`), as in
+the port. One more column, "radix kernel, plain steps", builds with the
+plain versions of `pack_keys`, `shift_planes` and `head_ranks` (the eager
+chain of PyTorch ops the kernels replaced) on the card in their place;
+only this harness routes there, never the engines.
+
     python -m stringsearch_torch.harness.profile_build transforms
     python -m stringsearch_torch.harness.profile_build engines
     python -m stringsearch_torch.harness.profile_build global
     python -m stringsearch_torch.harness.profile_build multihost
+    python -m stringsearch_torch.harness.profile_build steps
 
-run the last four parts alone.
+run the last four parts alone; `steps` runs the flat, the partitioned
+(P = 4) and the bstar build at 2^28 with the step kernels and with the
+plain steps in turns (kernels, plain, plain, kernels), the same numbers
+for each.
 """
 
 from __future__ import annotations
@@ -54,9 +64,21 @@ import torch
 import stringsearch_torch as st
 from stringsearch_torch.engines import bstar, dc3, doubling
 from stringsearch_torch.harness.corpus import enwik_like, regression_corpus
-from stringsearch_torch.ops import bitonic, radix_sort
+from stringsearch_torch.ops import bitonic, radix_sort, steps
 
 SIZES = (24, 28)
+# the steps between the sorts, as `engines/doubling.py` calls them
+KERNEL_STEPS = {"pack_keys": steps.pack_keys,
+                "shift_planes": steps.shift_planes,
+                "head_ranks": steps.head_ranks}
+PLAIN_STEPS = {"pack_keys": steps.plain_pack_keys,
+               "shift_planes": steps.plain_shift_planes,
+               "head_ranks": steps.plain_head_ranks}
+
+
+def _route_steps(table: dict) -> None:
+    for name, fn in table.items():
+        setattr(doubling, name, fn)
 
 
 def _timed(sort, log):
@@ -102,11 +124,12 @@ def _kernel_sums(fn) -> dict:
 
 
 def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
-            nbytes: int = 0) -> None:
+            nbytes: int = 0, step_fns: dict = KERNEL_STEPS) -> None:
     """Three walls of fn() after a warm-up and its peak memory; the
     CUDA-event time of each sort it makes; its kernels summed by name and
     the device's idle share. `sort` takes the place of `device_sort` in
-    `modules` meanwhile."""
+    `modules`, and `step_fns` that of the steps between the sorts in
+    `engines/doubling.py`, meanwhile."""
     def route(fn_sort):
         for module in modules:
             module.device_sort = fn_sort
@@ -116,6 +139,7 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
         torch.cuda.synchronize()
 
     route(sort)
+    _route_steps(step_fns)
     try:
         run()
         torch.cuda.reset_peak_memory_stats()
@@ -134,9 +158,12 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
         log = []
         route(_timed(sort, log))
         launches = radix_sort.launches
+        step_launches = dict(steps.launches)
         syncs = _syncs(fn)
         torch.cuda.synchronize()
         launches = radix_sort.launches - launches
+        step_launches = {k: steps.launches[k] - step_launches[k]
+                         for k in step_launches}
         route(sort)
         by_shape = defaultdict(lambda: [0, 0.0])
         for c, nk, start, end in log:
@@ -146,7 +173,8 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
         for (c, nk), (count, ms) in sorted(by_shape.items()):
             print(f"   sort C={c} keys={nk}: {count} x, {ms:.3f} ms")
         print(f"   {len(log)} device_sort calls, {launches} radix sort "
-              f"launches, {syncs} host syncs")
+              f"launches, {syncs} host syncs, step kernel launches "
+              f"{step_launches}")
 
         per = _kernel_sums(run)
         busy = sum(ms for ms, _ in per.values())
@@ -163,6 +191,7 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
                 print(f"   {ms:10.3f} ms x {count:3d}  {name}")
     finally:
         route(bitonic.device_sort)
+        _route_steps(KERNEL_STEPS)
 
 
 def _syncs(fn) -> int:
@@ -265,6 +294,29 @@ def profile_multihost(log2n: int = 28, shards: int = 4) -> None:
               f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def profile_steps(log2n: int = 28) -> None:
+    """The flat, the partitioned (P = 4) and the bstar build (which reaches
+    the steps through `build_ints_with_isa`) at 2^log2n with the step
+    kernels and with the plain steps, in turns: kernels, plain, plain,
+    kernels."""
+    from stringsearch_torch.parallel.partitioned import build_partitioned
+
+    n = 1 << log2n
+    text = torch.from_numpy(
+        np.frombuffer(enwik_like(n), dtype=np.uint8).copy()).to("cuda")
+    builds = (("build", lambda: _one_build(text), (doubling,)),
+              ("partitioned build, 4 partitions",
+               lambda: build_partitioned(text, 4), (doubling,)),
+              ("bstar build", lambda: bstar.sort(text), (bstar, doubling)))
+    turns = (("step kernels", KERNEL_STEPS), ("plain steps", PLAIN_STEPS),
+             ("plain steps", PLAIN_STEPS), ("step kernels", KERNEL_STEPS))
+    for what, fn, modules in builds:
+        for turn, (label, table) in enumerate(turns, 1):
+            profile(f"2^{log2n} {what}, radix kernel, {label} (turn {turn})",
+                    fn, modules=modules, nbytes=n, step_fns=table)
+            torch.cuda.empty_cache()
+
+
 def compaction_walls() -> None:
     """Build walls of the inputs whose cost is many small sorts: the two
     adversarial texts one by one, then the whole set that `chip_smoke.py`
@@ -317,6 +369,7 @@ def main() -> None:
         capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     radix_sort.load_library()
+    steps.load_library()
     if sys.argv[1:] == ["transforms"]:
         profile_transforms()
         return
@@ -329,17 +382,23 @@ def main() -> None:
     if sys.argv[1:] == ["multihost"]:
         profile_multihost()
         return
+    if sys.argv[1:] == ["steps"]:
+        profile_steps()
+        return
     bitonic.load_library()
     for log2n in SIZES:
         text = torch.from_numpy(
             np.frombuffer(enwik_like(1 << log2n), dtype=np.uint8).copy()
         ).to("cuda")
-        for label, sort in (("radix kernel", bitonic.device_sort),
-                            ("bitonic kernel", bitonic.bitonic_sort),
-                            ("plain", bitonic.plain_sort)):
+        for label, sort, table in (
+                ("radix kernel", bitonic.device_sort, KERNEL_STEPS),
+                ("radix kernel, plain steps", bitonic.device_sort,
+                 PLAIN_STEPS),
+                ("bitonic kernel", bitonic.bitonic_sort, KERNEL_STEPS),
+                ("plain", bitonic.plain_sort, KERNEL_STEPS)):
             profile(f"2^{log2n} build, {label}",
                     lambda text=text: _one_build(text), sort,
-                    nbytes=1 << log2n)
+                    nbytes=1 << log2n, step_fns=table)
         del text
         torch.cuda.empty_cache()
     compaction_walls()
