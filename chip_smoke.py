@@ -10,10 +10,10 @@ It drives the port's main path once at the benchmark's size and fails
 present. Phases, each printed with its result and time:
 
   0. versions, the card's name and power limit;
-  1. build the four kernel libraries from the sources in the checkout:
+  1. build the five kernel libraries from the sources in the checkout:
      the radix sort behind `device_sort`, the bitonic sort, the
-     radix-partition kernels and the steps between the sorts (one nvcc per
-     source, all started together);
+     radix-partition kernels, the steps between the sorts and the global
+     build's merge-split (one nvcc per source, all started together);
   2. both sort kernels against the plain sort at 2^24 and 2^24 + 12345,
      tolerance 0: the radix sort, which is stable, element for element on
      every plane (heavy ties under a random payload, INT32_MIN/MAX keys,
@@ -28,8 +28,8 @@ present. Phases, each printed with its result and time:
   3. `build_suffix_array(enwik_like(2^28), device="cuda")`, then the
      device verify and the host oracle's sufcheck; over the build the
      radix sort's launch count must be > 0 and the bitonic sort's 0, and
-     each of the three step kernels' (`ops/steps.py`: `pack_keys`,
-     `shift_planes`, `head_ranks`) > 0;
+     each of the three step kernels' of the flat build (`ops/steps.py`:
+     `pack_keys`, `shift_planes`, `head_ranks`) > 0;
   4. the SA byte-exact against the C++ oracle on enwik-like 2^24 text, the
      regression corpus and adversarial inputs that reach compaction;
   5. 256 LCS, 256 exact and 16 single-byte queries on the 2^28 index,
@@ -81,8 +81,11 @@ present. Phases, each printed with its result and time:
  13. the exact global suffix array over four shards of the one card:
      `build_global(text, make_mesh(devices=[cuda] * 4))` on phase 3's text,
      its SA equal to phase 3's element for element, its sharded `verify()`
-     passing and rejecting the state with one rank corrupted, with the
-     radix sort's launches, the plain sort's calls (none), host syncs,
+     passing and rejecting the state with one rank corrupted; over the
+     first build the merge-split kernel's launches (`ops/merge.py`) and
+     the sharded head ranking's (`ops/steps.py:shard_head_ranks`) must be
+     > 0, and the radix sort's are printed beside the count of the route
+     before them; with the plain sort's calls (none), host syncs,
      peak memory, rounds, the bytes the collectives moved against the comm
      model, and the wall of two warm builds; phase 5's LCS needles in both
      text modes equal to the flat index's answers, `sa_search_batch` and
@@ -101,7 +104,9 @@ present. Phases, each printed with its result and time:
      to a temporary `.npy`; each process holds its SA shards against the
      matching slice of it element for element, runs the sharded `verify()`
      (and its catch of a corrupted rank), times a cold and a warm build
-     with its radix sort launches > 0 and its plain sort calls 0, and
+     with its radix sort, merge-split and sharded head-ranks launches > 0
+     (the radix sort's printed beside the route before) and its plain
+     sort calls 0, and
      prints its wall, the bytes that crossed processes, the transport's
      seconds, the bytes per shard against the comm model and its peak
      memory. The processes' exact searches and single-byte counts must
@@ -118,6 +123,22 @@ present. Phases, each printed with its result and time:
      each kernel's tile, chunks 4 and near 1000, depths 4, 12 and 24,
      fans 2 to 4 with h at and past the chunk, all-equal keys over 2^24
      slots, all-distinct keys, groups that start only at tile starts,
+     int32 and int64;
+ 16. the global build's two kernels against their plain versions,
+     tolerance 0: `merge_split` on the first merge of phase 13's initial
+     sort (L = 2^26 a shard, four packed key words and the position, both
+     halves), timed beside its plain version (the chained stable
+     `torch.sort` of the concatenation), the route it replaced (the
+     `device_sort` of the concatenation) and its bytes bound; then at
+     L = 2^24 on all-equal keys, one run wholly below the other,
+     interleaved runs and a tie group straddling the split, in int32,
+     int64 and mixed planes, every half and order, and at small L around
+     its tile and at every width a caller of `sharded_sort` passes;
+     `shard_head_ranks` on shards 0 and 1 of that sort's output (the
+     previous shard's last key tuple as slot 0's predecessor), timed
+     beside its plain chain, `torch.cummax` of the scan and its bound,
+     and on a shard wholly inside one group (the longest look-back), then
+     its edge cases: n around its tile, with and without a predecessor,
      int32 and int64.
 Phases 9, 12 and 13 print the seconds of each command or step.
 Phases 7 to 10 each zero the sort kernels' launch counts first and need
@@ -144,6 +165,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -160,6 +182,12 @@ OPS_PER_S = 33.5e12
 SORT_SHAPES = (("invert", 2, 1), ("initial", 4, 3), ("round", 5, 4))
 # the engines phases 9 to 11 drive
 ENGINES = "doubling,dc3,bstar"
+# the step kernels of the flat build (phase 3)
+FLAT_STEPS = ("pack_keys", "shift_planes", "head_ranks")
+# radix sort launches of the global build at 2^28 on four shards, and of
+# one process of two, before merge_split took the merges (PERF.md §6)
+EARLIER_GLOBAL_RADIX = 32
+EARLIER_PROCESS_RADIX = 16
 
 
 class SmokeFailure(Exception):
@@ -468,8 +496,8 @@ def phase3_build():
         f"{bitonic_launches}, step kernel launches {step_launches}")
     check(launches > 0, "the build launched no radix sort")
     check(bitonic_launches == 0, "the build launched the bitonic kernel")
-    for k, count in step_launches.items():
-        check(count > 0, f"the build launched no {k} kernel")
+    for k in FLAT_STEPS:
+        check(step_launches[k] > 0, f"the build launched no {k} kernel")
     check(sa.sa.device.type == "cuda" and sa.sa.dtype == torch.int32,
           "SA is not an int32 CUDA tensor")
 
@@ -581,10 +609,10 @@ def phase5_queries(sa, text_np, sa_host) -> dict:
 
 
 def phase1_build_kernels() -> None:
-    """Build and load the three kernel libraries, one nvcc each, side by
+    """Build and load the kernel libraries, one nvcc each, side by
     side."""
     from concurrent.futures import ThreadPoolExecutor
-    from stringsearch_torch.ops import bitonic, radix, radix_sort, steps
+    from stringsearch_torch.ops import bitonic, merge, radix, radix_sort, steps
 
     def timed(load):
         t0 = time.perf_counter()
@@ -593,14 +621,15 @@ def phase1_build_kernels() -> None:
 
     libraries = (("the radix sort", radix_sort), ("the bitonic sort", bitonic),
                  ("the radix-partition kernels", radix),
-                 ("the step kernels", steps))
+                 ("the step kernels", steps),
+                 ("the merge-split kernel", merge))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         times = [pool.submit(timed, module.load_library)
                  for _, module in libraries]
         for (what, _), t in zip(libraries, times):
             say(f"phase 1: built and loaded {what} in {t.result():.2f} s")
-    say(f"phase 1: four libraries built side by side in "
+    say(f"phase 1: {len(libraries)} libraries built side by side in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -1354,6 +1383,7 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     from stringsearch_torch.harness.cli import main as cli
     from stringsearch_torch.harness.corpus import enwik_like
     from stringsearch_torch.harness.profile_build import _syncs
+    from stringsearch_torch.ops import merge, steps as step_ops
     from stringsearch_torch.parallel import collectives, distsort, global_sa
     from stringsearch_torch.ops.bitonic import PlainSortCalls
     from stringsearch_torch.parallel.comm_model import (executed_bytes,
@@ -1382,11 +1412,16 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     distsort.fallbacks.clear()
     global_sa.compact_fallbacks = 0
     built = []
+    merge.launches = 0
+    step_ops.launches["shard_head_ranks"] = 0
     with SortLaunches("the global build") as count, PlainSortCalls() as plain:
         t0 = time.perf_counter()
-        syncs = _syncs(lambda: built.append(build_global(text, mesh)))
+        sync_sites = _syncs(lambda: built.append(build_global(text, mesh)))
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
+    syncs = len(sync_sites)
+    merges = merge.launches
+    heads = step_ops.launches["shard_head_ranks"]
     g = built.pop()
     peak = torch.cuda.max_memory_allocated()
     launches = count.radix
@@ -1395,6 +1430,8 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     compact_fell_back = global_sa.compact_fallbacks
     check(plain.calls == 0, f"the global build called the plain sort "
                             f"{plain.calls} times")
+    check(merges > 0, "the global build launched no merge_split")
+    check(heads > 0, "the global build launched no shard_head_ranks")
     check(all(s.device == cuda for s in g._sa_sharded + g.rank),
           "a shard of the global build left the card")
     step("the first build")
@@ -1422,9 +1459,12 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     check(report == model, "comm_report() differs from global_build_comm")
     expected = executed_bytes(g)
     say(f"phase 13: global build n=2^{LOG2N} on {shards} shards of one card: "
-        f"{first_s:.4f} s, radix sort launches {launches}, plain sort "
-        f"calls {plain.calls}, host syncs {syncs}, peak CUDA memory {peak} B "
-        f"of which {held} B held before, rounds_run {g.rounds_run} "
+        f"{first_s:.4f} s, radix sort launches {launches} (the route "
+        f"before merge_split: {EARLIER_GLOBAL_RADIX}), merge_split launches "
+        f"{merges}, shard_head_ranks launches {heads}, plain sort "
+        f"calls {plain.calls}, host syncs {syncs} "
+        f"{dict(sorted(Counter(sync_sites).items()))}, peak CUDA memory "
+        f"{peak} B of which {held} B held before, rounds_run {g.rounds_run} "
         f"(ran {g.rounds_executed}), compact_rounds_run "
         f"{g.compact_rounds_run} (ran {g.compact_rounds_executed}), "
         f"fallbacks {fell_back} / compacted {compact_fell_back}; SA equal to "
@@ -1572,6 +1612,7 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     say(f"phase 13: seconds by step: {json.dumps(steps)}")
     return {"n": n, "shards": shards, "first_s": first_s,
             "warm_walls_s": walls, "launches": launches,
+            "merge_launches": merges, "head_ranks_launches": heads,
             "plain_sort_calls": plain.calls, "host_syncs": syncs,
             "peak_bytes": peak, "held_bytes": held,
             "rounds_run": report.rounds, "comm_bytes": report.total_bytes,
@@ -1604,6 +1645,10 @@ def phase14_multihost(text_np, sa_host, card: str) -> dict:
               f"phase 14: process {r['pid']} launched "
               f"{r['radix_launches']} radix sorts, called the plain sort "
               f"{r['plain_sort_calls']} times")
+        check(r["merge_launches"] > 0 and r["head_ranks_launches"] > 0,
+              f"phase 14: process {r['pid']} launched "
+              f"{r['merge_launches']} merge_split and "
+              f"{r['head_ranks_launches']} shard_head_ranks kernels")
         if not r["fallbacks"] and not r["compact_fallbacks"]:
             check(max(r["bulk_bytes_per_shard"]) == r["expected_bytes"],
                   "phase 14: the collectives moved other bytes than the "
@@ -1611,7 +1656,10 @@ def phase14_multihost(text_np, sa_host, card: str) -> dict:
         say(f"phase 14: process {r['pid']}, shards {r['parts']}: build "
             f"cold {r['walls_s'][0]:.4f} s, warm {r['walls_s'][1]:.4f} s; "
             f"crossed {r['crossed']} B, transport {r['transport_s']:.4f} s; "
-            f"radix sort launches {r['radix_launches']}, peak CUDA memory "
+            f"radix sort launches {r['radix_launches']} (the route before "
+            f"merge_split: {EARLIER_PROCESS_RADIX}), merge_split launches "
+            f"{r['merge_launches']}, shard_head_ranks launches "
+            f"{r['head_ranks_launches']}, peak CUDA memory "
             f"{r['peak_bytes']} B; rounds_run {r['rounds_run']} (ran "
             f"{r['rounds_executed']}); verify {r['verify_s']:.4f} s [{card}]")
     first = reports[0]
@@ -1638,7 +1686,7 @@ def phase14_multihost(text_np, sa_host, card: str) -> dict:
     say("phase 14: the NCCL route was not run: one card, and NCCL refuses "
         "two ranks on one device (gloo staged through the host instead)")
     keep = ("parts", "walls_s", "crossed", "transport_s", "radix_launches",
-            "plain_sort_calls", "peak_bytes", "bulk_bytes_per_shard",
+            "merge_launches", "head_ranks_launches", "plain_sort_calls", "peak_bytes", "bulk_bytes_per_shard",
             "expected_bytes", "rounds_run", "rounds_executed",
             "compact_rounds_run", "fallbacks", "compact_fallbacks",
             "verify_s")
@@ -1723,7 +1771,7 @@ def phase15_steps(text_np, card: str) -> dict:
 
     n = len(text_np)
     text = torch.from_numpy(text_np.copy()).to("cuda")
-    reports = {k: {"shapes": []} for k in steps.launches}
+    reports = {k: {"shapes": []} for k in FLAT_STEPS}
 
     def held(kernel, shape, got, want, fn, plain, nbytes, library=None):
         err = _exact_err(got, want)
@@ -1814,6 +1862,273 @@ def phase15_steps(text_np, card: str) -> dict:
     return reports
 
 
+def _spread(k, dtype):
+    """Small nonnegative keys onto distinct values of `dtype`, negatives and
+    an int64's high word included, order kept."""
+    import torch
+
+    if dtype == torch.int64:
+        return k.to(torch.int64) * ((1 << 33) + 7) - (1 << 45)
+    return (k.to(torch.int64) * 3 - (1 << 20)).to(torch.int32)
+
+
+def _merge_edge_cases(gen) -> tuple:
+    """`merge_split` against its plain version on the edge cases of
+    tests/test_torch_merge.py: (cases, max_abs_err)."""
+    import torch
+    from stringsearch_torch.ops import merge
+    from stringsearch_torch.ops.bitonic import plain_sort
+
+    i32, i64 = torch.int32, torch.int64
+    kinds = {"int32": (i32, i32, i32), "int64": (i64, i64, i64),
+             "mixed": (i32, i64, i32)}
+    done = [0, 0]
+
+    def held(a, b, num_keys):
+        for mine_first in (True, False):
+            for keep_low in (True, False):
+                got = merge.merge_split(a, b, mine_first, keep_low, num_keys)
+                want = merge.plain_merge_split(a, b, mine_first, keep_low,
+                                               num_keys)
+                done[0] += 1
+                done[1] = max(done[1], _exact_err(got, want))
+
+    def randint(hi, n):
+        return torch.randint(0, hi, (n,), generator=gen).to("cuda")
+
+    length = 1 << 24
+    half = length // 2
+    j = torch.arange(length, device="cuda")
+    for case in ("all equal", "one run below", "interleaved", "straddling"):
+        if case == "all equal":
+            ka = kb = torch.full((length,), 5, device="cuda")
+        elif case == "one run below":
+            ka = torch.full((length,), 1, device="cuda")
+            kb = torch.full((length,), 9, device="cuda")
+        elif case == "interleaved":
+            ka = torch.sort(randint(4, length))[0]
+            kb = torch.sort(randint(4, length))[0]
+        else:
+            ka = torch.where(j < half, 0, 5)
+            kb = torch.where(j < half, 5, 9)
+        for dtypes in kinds.values():
+            a = (_spread(ka, dtypes[0]), _spread(ka // 2, dtypes[1]),
+                 j.to(dtypes[2]))
+            b = (_spread(kb, dtypes[0]), _spread(kb // 2, dtypes[1]),
+                 (length + j).to(dtypes[2]))
+            for num_keys in (1, 2):
+                held(a, b, num_keys)
+        del ka, kb
+    del j
+    torch.cuda.empty_cache()
+
+    def runs(n, dtypes, num_keys):
+        planes = [_spread(randint(3, 2 * n), dt) if q < num_keys
+                  else randint(1 << 30, 2 * n).to(dt)
+                  for q, dt in enumerate(dtypes)]
+        a = plain_sort([p[:n] for p in planes], num_keys)
+        b = plain_sort([p[n:] for p in planes], num_keys)
+        return a, b
+
+    for n in (1, 2, 3, 2047, 2048, 2049, 4097):
+        for dtypes in kinds.values():
+            dtypes = dtypes + dtypes[:2]
+            for num_keys in (1, 3, 5):
+                held(*runs(n, dtypes, num_keys), num_keys)
+    # every width a caller of sharded_sort passes
+    for idx in (i32, i64):
+        widths = [([i32] * (d // 4) + [idx], d // 4) for d in (4, 8, 16, 64)]
+        widths += [([idx] * 4, 1), ([idx] * 2, 1)]
+        widths += [([idx] * (fan + 1), fan + 1) for fan in (2, 3, 4, 7)]
+        for dtypes, num_keys in widths:
+            held(*runs(5000, dtypes, num_keys), num_keys)
+    torch.cuda.synchronize()
+    return tuple(done)
+
+
+def _head_edge_cases(gen) -> tuple:
+    """`shard_head_ranks` against its plain version on the edge cases of
+    tests/test_torch_merge.py: (cases, max_abs_err)."""
+    import torch
+    from stringsearch_torch.ops import steps
+
+    done = [0, 0]
+    for n in (1, 2, 3, steps.SCAN_TILE - 1, steps.SCAN_TILE,
+              steps.SCAN_TILE + 1, 8 * steps.SCAN_TILE + 5,
+              (1 << 20) + 12345):
+        for idx in (torch.int32, torch.int64):
+            j = torch.arange(n, device="cuda")
+            rand = torch.sort(torch.randint(0, max(n // 3, 1), (n,),
+                                            generator=gen))[0].to("cuda")
+            for keys in ([rand.to(idx), (j % 2).to(torch.int32)],
+                         [torch.full((n,), 7, dtype=idx, device="cuda")],
+                         [j.to(idx)],
+                         [(j // steps.SCAN_TILE).to(torch.int32)]):
+                first = torch.stack([k[0].to(torch.int64) for k in keys])
+                for prev in (None, first, first - 1):
+                    for offset in (0, 3 * n):
+                        got = steps.shard_head_ranks(keys, prev, offset, idx)
+                        want = steps.plain_shard_head_ranks(keys, prev,
+                                                            offset, idx)
+                        done[0] += 1
+                        done[1] = max(done[1], _exact_err([got[0]],
+                                                          [want[0]]),
+                                      abs(int(got[1]) - int(want[1])))
+    torch.cuda.synchronize()
+    return tuple(done)
+
+
+def phase16_merge(text_np, card: str) -> dict:
+    """The global build's merge-split and sharded head ranking against
+    their plain versions at the shapes of phase 13's build, and on their
+    edge cases, with times. Returns one report per kernel."""
+    import torch
+    from stringsearch_torch.ops import merge, steps
+    from stringsearch_torch.ops.bitonic import device_sort, plain_sort
+    from stringsearch_torch.parallel import global_sa
+    from stringsearch_torch.parallel.distsort import (rank_interval_sort,
+                                                      sharded_sort)
+
+    n = len(text_np)
+    shards = 4
+    length = n // shards
+    nk = global_sa.INITIAL_DEPTH // 4
+    text = torch.from_numpy(text_np.copy()).to("cuda")
+    reports = {"merge_split": {"shapes": []},
+               "shard_head_ranks": {"shapes": []}}
+
+    def held(kernel, shape, got, want, fn, plain, nbytes, library=None,
+             replaced=None):
+        err = _exact_err(got, want)
+        ms = cuda_ms(fn, 10)
+        plain_ms = cuda_ms(plain, 2)
+        library_ms = round(cuda_ms(library, 3), 4) if library else None
+        replaced_ms = round(cuda_ms(replaced, 3), 4) if replaced else None
+        bounds = bound(nbytes, 0)
+        say(f"phase 16: {kernel} {shape}: max_abs_err {err} (tolerance 0); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + (f", the route it replaced {replaced_ms} ms" if replaced
+               else "")
+            + (f", library {library_ms} ms" if library else "")
+            + f"; bound {bounds['bound_ms']} ms ({nbytes} B), share "
+            f"{bounds['bound_ms'] / ms:.3f} [{card}]")
+        check(err == 0, f"{kernel} {shape} disagrees with its plain version")
+        reports[kernel]["shapes"].append({
+            "shape": shape, "max_abs_err": err, "ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 4), "library_ms": library_ms,
+            "replaced_ms": replaced_ms, **bounds})
+
+    # the initial sort of phase 13's build: every shard's operands, and the
+    # network's first merge, shard 0 (low half) with shard 1 (high half)
+    ops = global_sa._initial_operands(global_sa.INITIAL_DEPTH, torch.int32,
+                                      list(text.view(shards, length)))
+    mine, theirs = (device_sort(tuple(op[me] for op in ops), nk)
+                    for me in (0, 1))
+    nbytes = 2 * length * sum(p.element_size() for p in mine)
+    for keep_low in (True, False):
+        def run(keep_low=keep_low, sort=None):
+            if sort is None:
+                return merge.merge_split(mine, theirs, True, keep_low, nk)
+            return merge.plain_merge_split(mine, theirs, True, keep_low, nk,
+                                           sort=sort)
+
+        held("merge_split", f"first merge of the initial sort, "
+             f"{'low' if keep_low else 'high'} half, L=2^{LOG2N - 2}, "
+             f"C={len(mine)}, {nk} keys", run(), run(sort=plain_sort),
+             run, lambda: run(sort=plain_sort), nbytes,
+             replaced=lambda: run(sort=device_sort))
+    del mine, theirs
+    torch.cuda.empty_cache()
+
+    def held_heads(what, keys, prev, offset, idx):
+        got = steps.shard_head_ranks(keys, prev, offset, idx)
+        want = steps.plain_shard_head_ranks(keys, prev, offset, idx)
+        check(int(got[1]) == int(want[1]),
+              f"shard_head_ranks {what}: count {int(got[1])} against "
+              f"{int(want[1])}")
+        # the scan alone as one PyTorch call, on the flags of this input
+        flag = torch.zeros(length, dtype=torch.bool, device="cuda")
+        flag[0] = prev is None
+        for q, k in enumerate(keys):
+            flag[1:] |= k[1:] != k[:-1]
+            if prev is not None:
+                flag[:1] |= k[:1] != prev[q]
+        gslot = offset + torch.arange(length, dtype=idx, device="cuda")
+        marked = torch.where(flag, gslot, -1)
+        del flag, gslot
+        nbytes = length * (sum(k.element_size() for k in keys)
+                           + torch.empty((), dtype=idx).element_size())
+        held("shard_head_ranks", f"{what}, L=2^{LOG2N - 2}, {len(keys)} key "
+             f"planes, {str(idx).split('.')[-1]} ({int(want[1])} tied)",
+             [got[0]], [want[0]],
+             lambda: steps.shard_head_ranks(keys, prev, offset, idx),
+             lambda: steps.plain_shard_head_ranks(keys, prev, offset, idx),
+             nbytes, lambda: torch.cummax(marked, 0))
+
+    # the head ranking of that sort's output, shards 0 and 1
+    out = sharded_sort(ops, nk)
+    del ops
+    torch.cuda.empty_cache()
+    for me in (0, 1):
+        held_heads(f"shard {me} of the initial sort",
+                   [ks[me] for ks in out[:nk]],
+                   None if me == 0 else
+                   torch.stack([ks[me - 1][-1] for ks in out[:nk]]),
+                   me * length, torch.int32)
+    del out
+    torch.cuda.empty_cache()
+    # the first doubling round's (phase 13's build: fan 3, h = the initial
+    # depth): its rank_interval_sort output, the -2 fill before shard 0; the
+    # same ranks as int64 planes for the int64 index mode
+    fan, h, i32 = 3, global_sa.INITIAL_DEPTH, torch.int32
+    rank = global_sa._initial_shard_ranks(h, i32,
+                                          list(text.view(shards, length)))[0]
+    del text
+    shifts = [global_sa._shifted_ranks(rank, k * h, i32)
+              for k in range(1, fan)]
+    gidx = [global_sa._global_iota(me, length, i32, "cuda")
+            for me in range(shards)]
+    planes = rank_interval_sort((rank, *shifts, gidx), num_keys=fan + 1)[:fan]
+    del rank, shifts, gidx
+    torch.cuda.empty_cache()
+    for idx in (i32, torch.int64):
+        for me in (0, 1):
+            prev = (torch.full((fan,), -2, dtype=idx, device="cuda")
+                    if me == 0 else
+                    torch.stack([ks[me - 1][-1] for ks in planes]).to(idx))
+            held_heads(f"shard {me} of the first round",
+                       [ks[me].to(idx) for ks in planes], prev, me * length,
+                       idx)
+            torch.cuda.empty_cache()
+    del planes
+    torch.cuda.empty_cache()
+    # the longest look-back: a shard wholly inside its predecessor's group
+    keys = [torch.zeros(length, dtype=torch.int32, device="cuda")]
+    prev = torch.zeros(1, dtype=torch.int64, device="cuda")
+    held("shard_head_ranks", f"a headless shard, L=2^{LOG2N - 2}",
+         [steps.shard_head_ranks(keys, prev, length, torch.int32)[0]],
+         [steps.plain_shard_head_ranks(keys, prev, length, torch.int32)[0]],
+         lambda: steps.shard_head_ranks(keys, prev, length, torch.int32),
+         lambda: steps.plain_shard_head_ranks(keys, prev, length,
+                                              torch.int32), 8 * length)
+    del keys
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(16)
+    for kernel, (cases, err) in (("merge_split", _merge_edge_cases(gen)),
+                                 ("shard_head_ranks",
+                                  _head_edge_cases(gen))):
+        say(f"phase 16: {kernel} on {cases} edge cases: max_abs_err {err} "
+            f"(tolerance 0)")
+        check(err == 0, f"{kernel} disagrees with its plain version on an "
+                        f"edge case")
+        reports[kernel]["edge_cases"] = cases
+        reports[kernel]["edge_max_abs_err"] = err
+    say(f"phase 16: edge cases in {time.perf_counter() - t0:.2f} s")
+    return reports
+
+
 def main() -> int:
     # One card: the first that CUDA would use, and the only one torch sees.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -1891,6 +2206,9 @@ def main() -> int:
         t0 = time.perf_counter()
         steps_report = phase15_steps(text_np, card)
         say(f"phase 15: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        merge_report = phase16_merge(text_np, card)
+        say(f"phase 16: passed in {time.perf_counter() - t0:.2f} s")
         del text_np
     except SmokeFailure as e:
         say(f"FAIL: {e}")
@@ -1976,6 +2294,42 @@ def main() -> int:
             "edge_cases": rep["edge_cases"],
         })
 
+    # the global build's two kernels: launches from phase 13's first build;
+    # headline, the first shape timed (the low half of the first merge;
+    # shard 1, which has a predecessor)
+    global_kernels = []
+    for name, source, what, launches in (
+            ("merge_split", "merge.cu",
+             "the lax.sort of the 2L concatenation in _merge_halves, "
+             "parallel/distsort.py:45 of the JAX package, which XLA sorts",
+             global_report["merge_launches"]),
+            ("shard_head_ranks", "steps.cu",
+             "the jnp ops of the neighbour diff of _initial_shard_ranks "
+             "and _doubling_step and of _headslot_ranks_from_sorted, "
+             "parallel/global_sa.py:120 of the JAX package, which XLA "
+             "fuses",
+             global_report["head_ranks_launches"])):
+        rep = merge_report[name]
+        head = rep["shapes"][1 if name == "shard_head_ranks" else 0]
+        global_kernels.append({
+            "name": name if name == "merge_split" else f"steps_{name}",
+            "route": "cuda",
+            "source": f"stringsearch_torch/ops/csrc/{source}",
+            "replaces": f"no pl.pallas_call: {what}",
+            "launches": launches,
+            "max_abs_err": max([s["max_abs_err"] for s in rep["shapes"]]
+                               + [rep["edge_max_abs_err"]]),
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "replaced_route_ms": head["replaced_ms"],
+            "timed_shape": head["shape"],
+            "shapes": rep["shapes"],
+            "edge_cases": rep["edge_cases"],
+        })
+
     say(json.dumps({"kernels": [
         sort_entry("radix_sort", "stringsearch_torch/ops/csrc/radix_sort.cu",
                    build["launches"], probe_launches=probe_sort_launches,
@@ -1989,7 +2343,7 @@ def main() -> int:
                    multihost=multihost_report),
         sort_entry("bitonic_sort", "stringsearch_torch/ops/csrc/bitonic.cu",
                    build["bitonic_launches"]),
-        *radix_kernels, *step_kernels]}))
+        *radix_kernels, *step_kernels, *global_kernels]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

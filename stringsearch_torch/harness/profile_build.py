@@ -41,22 +41,31 @@ only this harness routes there, never the engines.
     python -m stringsearch_torch.harness.profile_build global
     python -m stringsearch_torch.harness.profile_build multihost
     python -m stringsearch_torch.harness.profile_build steps
+    python -m stringsearch_torch.harness.profile_build merge
 
 run the last four parts alone; `steps` runs the flat, the partitioned
 (P = 4) and the bstar build at 2^28 with the step kernels and with the
 plain steps in turns (kernels, plain, plain, kernels), the same numbers
-for each.
+for each. `merge` runs the global build at 2^28 on four shards of one
+card in turns, the route before the global build's two kernels and the
+route through them (old, new, new, old): the old route merges by a
+`device_sort` of each concatenation and ranks heads with the plain chain
+(`plain_merge_split` and `plain_shard_head_ranks` on the card, which
+only this harness does), the new one runs `merge_split` and
+`shard_head_ranks`.
 """
 
 from __future__ import annotations
 
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 import torch
@@ -64,7 +73,7 @@ import torch
 import stringsearch_torch as st
 from stringsearch_torch.engines import bstar, dc3, doubling
 from stringsearch_torch.harness.corpus import enwik_like, regression_corpus
-from stringsearch_torch.ops import bitonic, radix_sort, steps
+from stringsearch_torch.ops import bitonic, merge, radix_sort, steps
 
 SIZES = (24, 28)
 # the steps between the sorts, as `engines/doubling.py` calls them
@@ -173,8 +182,9 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
         for (c, nk), (count, ms) in sorted(by_shape.items()):
             print(f"   sort C={c} keys={nk}: {count} x, {ms:.3f} ms")
         print(f"   {len(log)} device_sort calls, {launches} radix sort "
-              f"launches, {syncs} host syncs, step kernel launches "
+              f"launches, {len(syncs)} host syncs, step kernel launches "
               f"{step_launches}")
+        print(f"   host syncs at {dict(sorted(Counter(syncs).items()))}")
 
         per = _kernel_sums(run)
         busy = sum(ms for ms, _ in per.values())
@@ -194,17 +204,32 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
         _route_steps(KERNEL_STEPS)
 
 
-def _syncs(fn) -> int:
-    """fn(), and the number of times it made the host wait for the device
-    (`torch.cuda.set_sync_debug_mode` warns once for each)."""
-    with warnings.catch_warnings(record=True) as caught:
+def _syncs(fn) -> list:
+    """fn(), and the places where it made the host wait for the device
+    (`torch.cuda.set_sync_debug_mode` warns once for each): for each wait,
+    the innermost frame of the package below this harness, as
+    "module/file.py:line"."""
+    sites = []
+
+    def seen(message, *args, **kwargs):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if f"{os.sep}stringsearch_torch{os.sep}" in f.filename
+                  and f"{os.sep}harness{os.sep}" not in f.filename]
+        frame = frames[-1] if frames else traceback.extract_stack()[-3]
+        path = frame.filename.split(f"stringsearch_torch{os.sep}")[-1]
+        sites.append(f"{path}:{frame.lineno}")
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = seen
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sites
 
 
 def profile_engines(log2n: int = 28) -> None:
@@ -258,6 +283,50 @@ def profile_global(log2n: int = 28, shards: int = 4) -> None:
             modules=(distsort, gather, global_sa), nbytes=n)
 
 
+def _old_merge(mine, theirs, mine_first, keep_low, num_keys):
+    """The merge-split as it was before `merge_split`: a `device_sort` of
+    the concatenation (looked up in `distsort` at the call, so `profile`
+    times it as a sort)."""
+    from stringsearch_torch.parallel import distsort
+
+    return merge.plain_merge_split(mine, theirs, mine_first, keep_low,
+                                   num_keys, sort=distsort.device_sort)
+
+
+def profile_merge(log2n: int = 28, shards: int = 4) -> None:
+    """The global build at 2^log2n on `shards` shards of one card, in
+    turns: the old route (merges by sorting each concatenation, the plain
+    head-ranking chain), the new (`merge_split`, `shard_head_ranks`), the
+    new, the old. The merge and head-rank launches of each turn are
+    printed with the rest."""
+    from stringsearch_torch.parallel import distsort, gather, global_sa
+    from stringsearch_torch.parallel.mesh import make_mesh
+
+    n = 1 << log2n
+    text = torch.from_numpy(
+        np.frombuffer(enwik_like(n), dtype=np.uint8).copy()).to("cuda")
+    mesh = make_mesh(devices=[torch.device("cuda")] * shards)
+    routes = {"old route": (_old_merge, steps.plain_shard_head_ranks),
+              "new route": (merge.merge_split, steps.shard_head_ranks)}
+    for turn, label in enumerate(("old route", "new route", "new route",
+                                  "old route"), 1):
+        distsort.merge_split, global_sa.shard_head_ranks = routes[label]
+        before = merge.launches, steps.launches["shard_head_ranks"]
+        try:
+            profile(f"2^{log2n} global build, {shards} shards of one card, "
+                    f"{label} (turn {turn})",
+                    lambda: global_sa.build_global(text, mesh),
+                    modules=(distsort, gather, global_sa), nbytes=n)
+        finally:
+            distsort.merge_split, global_sa.shard_head_ranks = \
+                routes["new route"]
+        print(f"   merge_split launches {merge.launches - before[0]}, "
+              f"shard_head_ranks launches "
+              f"{steps.launches['shard_head_ranks'] - before[1]} over the "
+              f"turn's six builds", flush=True)
+        torch.cuda.empty_cache()
+
+
 def profile_multihost(log2n: int = 28, shards: int = 4) -> None:
     """The global build at 2^log2n across processes (process i on card i
     modulo the cards visible): 2 x shards/2 on gloo, which runs on one
@@ -289,7 +358,8 @@ def profile_multihost(log2n: int = 28, shards: int = 4) -> None:
               f"process), crossed {[r['crossed'] for r in reports]} B, "
               f"transport {[round(r['transport_s'], 4) for r in reports]} "
               f"s, radix launches "
-              f"{[r['radix_launches'] for r in reports]}, peak "
+              f"{[r['radix_launches'] for r in reports]}, merge_split "
+              f"launches {[r['merge_launches'] for r in reports]}, peak "
               f"{[r['peak_bytes'] for r in reports]} B; run_selftest "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -370,6 +440,7 @@ def main() -> None:
     print(card, flush=True)
     radix_sort.load_library()
     steps.load_library()
+    merge.load_library()
     if sys.argv[1:] == ["transforms"]:
         profile_transforms()
         return
@@ -381,6 +452,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["multihost"]:
         profile_multihost()
+        return
+    if sys.argv[1:] == ["merge"]:
+        profile_merge()
         return
     if sys.argv[1:] == ["steps"]:
         profile_steps()

@@ -19,7 +19,12 @@
 //       count of `_ranks_sorted_only` / `_heads_and_tied` (l.143-172):
 //       rank_s[j] = the last slot <= j where some key plane differs from
 //       the slot before (slot 0 always counts), and the number of slots
-//       whose group holds two or more.
+//       whose group holds two or more. On one shard of the global build
+//       (stringsearch_tpu/parallel/global_sa.py:120,
+//       `_headslot_ranks_from_sorted`, and the neighbour diff before it)
+//       slot 0 is compared with the previous shard's last key tuple, a
+//       slot before the shard's first group start gets -1, and the heads
+//       are offset to global slots.
 //
 // Bound: device-memory bytes, for all three. Each reads its inputs and
 // writes its outputs once and does a few integer operations an element:
@@ -292,10 +297,11 @@ struct KeyPlanes {
 };
 
 // diff[m] |= p[j0 + m] != p[j0 + m - 1] for m in [0, kScanItems], where
-// both slots lie in [0, n).
+// both slots lie in [0, n); slot 0's predecessor is `prev` where it is not
+// null.
 template <typename T>
 __device__ __forceinline__ void add_diffs(const T* __restrict__ p, int64_t j0,
-                                          int64_t n,
+                                          int64_t n, const int64_t* prev,
                                           bool (&diff)[kScanItems + 1]) {
   if (j0 >= n) return;
   T v[kScanItems];
@@ -305,16 +311,35 @@ __device__ __forceinline__ void add_diffs(const T* __restrict__ p, int64_t j0,
 #pragma unroll
     for (int m = 0; m < kScanItems; ++m) v[m] = j0 + m < n ? p[j0 + m] : T(0);
   }
-  if (j0 > 0) diff[0] |= v[0] != p[j0 - 1];
+  if (j0 > 0) {
+    diff[0] |= v[0] != p[j0 - 1];
+  } else if (prev != nullptr) {
+    diff[0] |= static_cast<int64_t>(v[0]) != *prev;
+  }
 #pragma unroll
   for (int m = 1; m < kScanItems; ++m) diff[m] |= v[m] != v[m - 1];
   if (j0 + kScanItems < n) diff[kScanItems] |= p[j0 + kScanItems] !=
                                               v[kScanItems - 1];
 }
 
+// A headless slot: none of the slots up to it starts a group (only where
+// slot 0 is compared with `prev`). As a look-back value, all value bits.
+__device__ __forceinline__ uint64_t encode_head(int64_t v) {
+  return v < 0 ? kValueMask : static_cast<uint64_t>(v);
+}
+
+__device__ __forceinline__ int64_t decode_head(uint64_t w) {
+  return (w & kValueMask) == kValueMask ? -1
+                                        : static_cast<int64_t>(w & kValueMask);
+}
+
+// prev: null, or one int64 a key plane, slot 0's predecessor (null: slot
+// 0 starts a group). rank_out[j] = offset + the last group start <= j, or
+// -1 where there is none.
 template <typename Idx>
 __global__ void __launch_bounds__(kScanThreads)
     head_ranks_kernel(KeyPlanes planes, int keys, int64_t n,
+                      const int64_t* __restrict__ prev, int64_t offset,
                       Idx* __restrict__ rank_out,
                       unsigned long long* __restrict__ count,
                       uint64_t* __restrict__ words,
@@ -337,12 +362,14 @@ __global__ void __launch_bounds__(kScanThreads)
   bool flag[kScanItems + 1] = {};
   for (int q = 0; q < keys; ++q) {
     if (planes.wide >> q & 1) {
-      add_diffs(static_cast<const int64_t*>(planes.plane[q]), j0, n, flag);
+      add_diffs(static_cast<const int64_t*>(planes.plane[q]), j0, n,
+                prev == nullptr ? nullptr : prev + q, flag);
     } else {
-      add_diffs(static_cast<const int*>(planes.plane[q]), j0, n, flag);
+      add_diffs(static_cast<const int*>(planes.plane[q]), j0, n,
+                prev == nullptr ? nullptr : prev + q, flag);
     }
   }
-  if (j0 == 0) flag[0] = true;
+  if (j0 == 0 && prev == nullptr) flag[0] = true;
   int64_t last = -1;  // this thread's last flagged slot
   unsigned tied = 0;
 #pragma unroll
@@ -386,7 +413,7 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 
   // the look-back: only a tile whose first slot is not flagged needs the
-  // last flag before it (slot 0 is flagged, so tile 0 never does)
+  // last flag before it (before tile 0 there is none)
   const bool need = !first_flag;
   if (need) {
     if (warp == 0) {
@@ -394,7 +421,8 @@ __global__ void __launch_bounds__(kScanThreads)
       uint64_t found;
       for (;;) {
         const int64_t t = at - lane;
-        const uint64_t w = t >= 0 ? load_word(words + t) : kInclusive;
+        const uint64_t w =
+            t >= 0 ? load_word(words + t) : kInclusive | encode_head(-1);
         const unsigned open = __ballot_sync(kFull, (w & ~kValueMask) != kNone);
         if (open == 0) {
           at -= 32;
@@ -403,16 +431,16 @@ __global__ void __launch_bounds__(kScanThreads)
         const int first = __ffs(open) - 1;
         const uint64_t fw = __shfl_sync(kFull, w, first);
         if ((fw & ~kValueMask) == kInclusive) {
-          found = fw & kValueMask;
+          found = fw;
           break;
         }
         at -= first;  // wait on the nearest word not yet published
       }
-      if (lane == 0) prefix = static_cast<int64_t>(found);
+      if (lane == 0) prefix = decode_head(found);
     }
     __syncthreads();
     if (tid == 0 && tile_last < 0) {
-      store_word(words + tile, kInclusive | static_cast<uint64_t>(prefix));
+      store_word(words + tile, kInclusive | encode_head(prefix));
     }
     if (prefix > excl) excl = prefix;
   }
@@ -422,7 +450,7 @@ __global__ void __launch_bounds__(kScanThreads)
 #pragma unroll
   for (int m = 0; m < kScanItems; ++m) {
     if (flag[m]) run = j0 + m;
-    r[m] = static_cast<Idx>(run);
+    r[m] = static_cast<Idx>(run < 0 ? run : run + offset);
   }
   if (j0 < n) store_run(rank_out + j0, r, n - j0);
 }
@@ -512,14 +540,18 @@ int64_t ss_head_ranks_scratch_bytes(int64_t n) {
   return (static_cast<int64_t>(blocks_of(n, kScanTile)) + 1) * 8;
 }
 
-// Head-slot ranks of n sorted slots: rank_out[j] (idx_bytes, 4 or 8) = the
-// last slot <= j where one of the `keys` planes (planes: host array of
-// device pointers, plane_bytes: 4 or 8 each) differs from the slot before,
-// or 0; *count (a device int64) = the slots whose group holds two or more.
+// Head-slot ranks of n sorted slots: rank_out[j] (idx_bytes, 4 or 8) =
+// offset + the last slot <= j where one of the `keys` planes (planes: host
+// array of device pointers, plane_bytes: 4 or 8 each) differs from the
+// slot before, or -1 where there is none; slot 0's predecessor is the key
+// tuple at prev (a device array of one int64 a plane), or, where prev is
+// null, slot 0 always counts. *count (a device int64) = the slots j that
+// do not count, or whose slot j + 1 < n does not: the slots whose group
+// holds two or more, where the group goes no further than slot n - 1.
 // scratch: ss_head_ranks_scratch_bytes(n), 8-byte aligned.
 int ss_head_ranks(const void* const* planes, const int* plane_bytes, int keys,
-                  int64_t n, void* rank_out, int idx_bytes, void* count,
-                  void* scratch, void* stream) {
+                  int64_t n, const void* prev, int64_t offset, void* rank_out,
+                  int idx_bytes, void* count, void* scratch, void* stream) {
   if (n < 1 || keys < 0 || keys > kMaxKeys ||
       (idx_bytes != 4 && idx_bytes != 8) ||
       (reinterpret_cast<uintptr_t>(scratch) & 7) != 0) {
@@ -544,10 +576,12 @@ int ss_head_ranks(const void* const* planes, const int* plane_bytes, int keys,
   auto* c = static_cast<unsigned long long*>(count);
   if (idx_bytes == 4) {
     head_ranks_kernel<int><<<tiles, kScanThreads, 0, s>>>(
-        kp, keys, n, static_cast<int*>(rank_out), c, words, counter);
+        kp, keys, n, static_cast<const int64_t*>(prev), offset,
+        static_cast<int*>(rank_out), c, words, counter);
   } else {
     head_ranks_kernel<int64_t><<<tiles, kScanThreads, 0, s>>>(
-        kp, keys, n, static_cast<int64_t*>(rank_out), c, words, counter);
+        kp, keys, n, static_cast<const int64_t*>(prev), offset,
+        static_cast<int64_t*>(rank_out), c, words, counter);
   }
   return static_cast<int>(cudaGetLastError());
 }

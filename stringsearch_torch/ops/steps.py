@@ -9,7 +9,14 @@ and the partitioned build, and `build_ints_with_isa` under dc3 and bstar.
   * `shift_planes`: a round's shifted rank planes and positions (its
     `_shift_ranks`, l.116, once a shift);
   * `head_ranks`: head-slot ranks and the tied count of a sorted tuple (its
-    `_ranks_sorted_only`, l.151, with `_heads_and_tied`'s `cummax`).
+    `_ranks_sorted_only`, l.151, with `_heads_and_tied`'s `cummax`);
+  * `shard_head_ranks`: the same kernel on one shard of the global build's
+    sorted order, slot 0 compared with the previous shard's last key
+    tuple and the heads as global slots (the neighbour diff of
+    stringsearch_tpu/parallel/global_sa.py's `_initial_shard_ranks` and
+    `_doubling_step`, and `_headslot_ranks_from_sorted`, l.120, but for
+    the cross-shard carry and the last slot's boundary term, which
+    `parallel/global_sa.py` adds).
 
 None of them replaces a Pallas kernel: the JAX package writes these steps
 as jnp ops inside one jitted build, which XLA fuses into a few passes. The
@@ -22,9 +29,10 @@ type, shape or launch error. There is no other route and no fallback.
 turns with the kernels, to measure what the kernels save; nothing else
 runs them there.
 
-`segment_heads` and `heads_and_tied` (the cumsum-and-scatter form of the
-reference's `cummax`) stay plain: `plain_head_ranks` uses them, and so do
-the compaction rounds and the bstar engine, through `engines/doubling.py`.
+`segment_heads`, `heads_and_tied` and `last_flagged` (the
+cumsum-and-scatter form of the reference's `cummax`) stay plain: the
+plain versions use them, and so do the compaction rounds (flat and
+global) and the bstar engine.
 """
 
 from __future__ import annotations
@@ -54,8 +62,10 @@ PACK_TILE = 1024
 SHIFT_TILE = 1024
 SCAN_TILE = 2048
 
-# Kernel launches in this process, by function.
-launches = {"pack_keys": 0, "shift_planes": 0, "head_ranks": 0}
+# Kernel launches in this process, by function (`shard_head_ranks` is
+# `head_ranks`' kernel on one shard of the global build).
+launches = {"pack_keys": 0, "shift_planes": 0, "head_ranks": 0,
+            "shard_head_ranks": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -73,7 +83,7 @@ def _load(path: str) -> ctypes.CDLL:
         ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int64), _P, _P]
     lib.ss_head_ranks.argtypes = [
         ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.c_int64, _P, ctypes.c_int, _P, _P, _P]
+        ctypes.c_int64, _P, ctypes.c_int64, _P, ctypes.c_int, _P, _P, _P]
     for fn in (lib.ss_pack_keys, lib.ss_shift_planes, lib.ss_head_ranks):
         fn.restype = ctypes.c_int
     lib.ss_head_ranks_scratch_bytes.argtypes = [ctypes.c_int64]
@@ -321,6 +331,31 @@ def plain_head_ranks(out):
     return sa_s, rank_s, tied.sum()
 
 
+def _launch_heads(kernel: str, keys, n: int, prev, offset: int, idx,
+                  device):
+    """One launch of the head-ranks scan over `keys` ([n] planes on the
+    CUDA `device`); returns (rank_s of dtype idx, count)."""
+    keys = [p.contiguous() for p in keys]
+    if len(keys) > _MAX_KEYS:
+        raise ValueError(f"head_ranks takes at most {_MAX_KEYS} key planes "
+                         f"on CUDA, got {len(keys)}")
+    rank_s = torch.empty((n,), dtype=idx, device=device)
+    if not n:
+        return rank_s, torch.zeros((), dtype=torch.int64, device=device)
+    # the launch zeroes the count and the scratch itself
+    count = torch.empty((), dtype=torch.int64, device=device)
+    words = load_library().ss_head_ranks_scratch_bytes(n) // 8
+    scratch = torch.empty((words,), dtype=torch.int64, device=device)
+    planes = (_P * max(len(keys), 1))(*(k.data_ptr() for k in keys))
+    widths = (ctypes.c_int * max(len(keys), 1))(
+        *(k.element_size() for k in keys))
+    _launch(kernel, "ss_head_ranks", device, planes, widths,
+            len(keys), n, None if prev is None else prev.data_ptr(), offset,
+            rank_s.data_ptr(), rank_s.element_size(), count.data_ptr(),
+            scratch.data_ptr())
+    return rank_s, count
+
+
 def head_ranks(out):
     """Head-slot ranking of a sorted (keys..., payload) tuple, in sorted
     order. Returns (sa_s, rank_s, count): sa_s is out[-1] as it is;
@@ -334,23 +369,92 @@ def head_ranks(out):
     sa_s = out[-1]
     if not _on_cuda(sa_s, "the sorted planes"):
         return plain_head_ranks(out)
-    n = sa_s.shape[0]
-    keys = [p.contiguous() for p in out[:-1]]
-    if len(keys) > _MAX_KEYS:
-        raise ValueError(f"head_ranks takes at most {_MAX_KEYS} key planes "
-                         f"on CUDA, got {len(keys)}")
-    rank_s = torch.empty_like(sa_s)
-    if not n:
-        return sa_s, rank_s, torch.zeros((), dtype=torch.int64,
-                                         device=sa_s.device)
-    # the launch zeroes the count and the scratch itself
-    count = torch.empty((), dtype=torch.int64, device=sa_s.device)
-    words = load_library().ss_head_ranks_scratch_bytes(n) // 8
-    scratch = torch.empty((words,), dtype=torch.int64, device=sa_s.device)
-    planes = (_P * max(len(keys), 1))(*(k.data_ptr() for k in keys))
-    widths = (ctypes.c_int * max(len(keys), 1))(
-        *(k.element_size() for k in keys))
-    _launch("head_ranks", "ss_head_ranks", sa_s.device, planes, widths,
-            len(keys), n, rank_s.data_ptr(), rank_s.element_size(),
-            count.data_ptr(), scratch.data_ptr())
+    rank_s, count = _launch_heads("head_ranks", out[:-1], sa_s.shape[0],
+                                  None, 0, sa_s.dtype, sa_s.device)
     return sa_s, rank_s, count
+
+
+# ---------------------------------------------------------------------------
+# shard_head_ranks: head_ranks on one shard of a sorted global order
+# ---------------------------------------------------------------------------
+
+
+def last_flagged(flag: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """`cummax(where(flag, vals, -1))` for nondecreasing `vals`: the value
+    at the last flagged slot <= i, or -1 before the first.
+
+    A cumsum, a scatter and a gather: each flagged slot writes its value
+    to its segment's entry, every other slot to a private scratch entry.
+    """
+    n = flag.shape[0]
+    seg = torch.cumsum(flag, 0, dtype=vals.dtype) - 1
+    j = torch.arange(n, dtype=vals.dtype, device=vals.device)
+    buf = torch.empty((2 * n,), dtype=vals.dtype, device=vals.device)
+    buf[torch.where(flag, seg, n + j)] = vals
+    return torch.where(seg >= 0, buf[seg.clamp(min=0)], -1)
+
+
+def _check_shard(keys, prev, offset: int, idx) -> tuple:
+    keys = tuple(keys)
+    if not keys:
+        raise ValueError("shard_head_ranks needs the key planes")
+    _check_heads(keys)
+    if idx not in _IDX:
+        raise TypeError(f"idx must be torch.int32 or torch.int64, got {idx}")
+    if prev is not None and (prev.dim() != 1 or prev.shape[0] != len(keys)
+                             or prev.device != keys[0].device):
+        raise ValueError("prev must hold one value a key plane, on the "
+                         "planes' device")
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, got {offset}")
+    return keys
+
+
+def plain_shard_head_ranks(keys, prev, offset: int, idx) -> tuple:
+    """`shard_head_ranks` as the chain of PyTorch ops the global build ran
+    before, on the planes' device."""
+    keys = _check_shard(keys, prev, offset, idx)
+    n = keys[0].shape[0]
+    device = keys[0].device
+    eq = None
+    for i, k in enumerate(keys):
+        before = k[:1] if prev is None else prev[i:i + 1].to(k.dtype)
+        same = k == torch.cat([before, k[:-1]])
+        eq = same if eq is None else eq & same
+    if prev is None and n:
+        eq[0] = False
+    gslots = offset + torch.arange(n, dtype=idx, device=device)
+    heads = last_flagged(~eq, gslots)
+    # tied, as far as the shard shows: not its own head, or the next slot
+    # in the shard shares its head
+    same_next = torch.cat([heads[1:] == heads[:-1],
+                           torch.zeros((min(n, 1),), dtype=torch.bool,
+                                       device=device)])
+    count = ((heads != gslots) | same_next).sum()
+    return heads, count
+
+
+def shard_head_ranks(keys, prev, offset: int, idx) -> tuple:
+    """Head-slot ranking of one shard of a sorted global order: what
+    `head_ranks` computes for a whole order, with the shard's boundary.
+
+    `keys` are the shard's [L] key planes, in sorted order. Slot j > 0
+    starts a group where some key plane differs from slot j - 1; slot 0
+    where its keys differ from `prev`, a [k] tensor holding the previous
+    shard's last key tuple (read as int64), or always where `prev` is None
+    (the global first slot). Returns (heads, count): heads[j], of dtype
+    `idx`, is offset + the last slot <= j that starts a group (the global
+    slot of j's group head, with offset = the shard's first global slot),
+    or -1 where no slot of the shard up to j starts one; count, a 0-d
+    int64 tensor on the planes' device, counts the slots that do not start
+    a group, and those that do where slot j + 1 of the shard does not. The
+    caller adds the carry of a headless prefix and the term of the shard's
+    last slot, which both need the neighbouring shards.
+    """
+    keys = _check_shard(keys, prev, offset, idx)
+    if not _on_cuda(keys[0], "the key planes"):
+        return plain_shard_head_ranks(keys, prev, offset, idx)
+    if prev is not None:
+        prev = prev.to(torch.int64).contiguous()
+    return _launch_heads("shard_head_ranks", keys, keys[0].shape[0], prev,
+                         offset, idx, keys[0].device)

@@ -7,7 +7,8 @@ function:
 - `sharded_sort`: each shard sorts its [L] chunk locally; the bitonic
   network over P chunk slots then runs comparator stages, each one an
   exchange of chunks with a partner (`ppermute`), a merge of the two
-  sorted chunks (one 2L sort) and a keep of the lower or upper half. P is
+  sorted chunks and a keep of the lower or upper half (on CUDA one pass of
+  `ops/merge.py:merge_split`, where the JAX package sorts all 2L). P is
   a power of two, and every stage moves exactly L elements per operand per
   shard: no capacity to overflow.
 - `redistribute_permutation`: routes elements to shard gidx // L, slot
@@ -35,6 +36,9 @@ What differs from the JAX package, and why:
     sorts by destination) the buffers may be laid out differently from
     JAX's; what the keys determine (the routed contents once re-sorted,
     the results) is the same.
+  * A merge-split stage merges the two sorted chunks (`merge_split`)
+    where the JAX package sorts their concatenation again: the same half,
+    element for element, on the same device.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from typing import Sequence
 import torch
 
 from stringsearch_torch.ops.bitonic import device_sort
+from stringsearch_torch.ops.merge import merge_split
 from stringsearch_torch.parallel import collectives as coll
 
 _I32 = torch.int32
@@ -87,17 +92,12 @@ def _merge_halves(mine, theirs, mine_first: bool, keep_low: bool,
 
     Both partners MUST materialize the identical merged list, or ties that
     straddle the split point get duplicated on one side and dropped on the
-    other. `mine_first` pins a canonical concatenation order — the
-    lower-indexed shard's chunk first on both sides.
+    other. `mine_first` pins a canonical order — the lower-indexed shard's
+    chunk first on both sides, its elements first where keys tie. On CUDA
+    one pass of the merge kernel (`ops/merge.py`) in place of the JAX
+    package's sort of the 2L concatenation.
     """
-    length = mine[0].shape[0]
-    cat = tuple(torch.cat([a, b] if mine_first else [b, a])
-                for a, b in zip(mine, theirs))
-    merged = device_sort(cat, num_keys)
-    del cat
-    half = slice(0, length) if keep_low else slice(length, 2 * length)
-    # a copy of the half, so the 2L buffer goes now
-    return tuple(m[half].clone() for m in merged)
+    return merge_split(mine, theirs, mine_first, keep_low, num_keys)
 
 
 def sharded_sort(operands: Sequence, num_keys: int = 1) -> tuple:

@@ -24,8 +24,9 @@ The algorithm is the JAX package's, step for step:
     2. a global sort by (rank, rank_h.., gidx) routed by head-slot rank
        (distsort.rank_interval_sort; merge-split on overflow);
     3. new head-slot ranks from neighbour diffs with the boundary value
-       shifted in, a local running max of head slots and an all-gathered
-       cross-shard carry;
+       shifted in, a local running max of head slots (on CUDA one launch
+       of the head-ranks scan a shard) and an all-gathered cross-shard
+       carry;
     4. ranks back to text order by the permutation redistribute.
 
   Rounds go in blocks of ROUNDS_PER_DISPATCH; once the tied population
@@ -50,8 +51,10 @@ What differs from the JAX package, and why:
     the round before, read once a round), the fast path or fallback of
     every distributed sort and of a compacted round (which reads all its
     overflow flags at once, before it writes anything).
-  * `lax.cummax` of head slots is `_last_flagged` (a cumsum, a scatter and
-    a gather, as `engines/doubling.py:_segment_heads`).
+  * The neighbour diff and `lax.cummax` of head slots after a sort are
+    one `ops/steps.py:shard_head_ranks` a shard (on CUDA the head-ranks
+    kernel; on the CPU the eager chain); in a compacted round `lax.cummax`
+    is `last_flagged` (a cumsum, a scatter and a gather).
   * The jitted query programs (`_jit_query`, `_jit_search`) are the query
     methods themselves: every shard's binary search is a generator of
     core/search.py, all driven in lock step (`run_in_lockstep`), so the
@@ -79,6 +82,7 @@ import torch
 from stringsearch_torch.core import compare as cmp
 from stringsearch_torch.core.types import BytesLike, as_text_tensor
 from stringsearch_torch.ops.bitonic import device_sort
+from stringsearch_torch.ops.steps import last_flagged, shard_head_ranks
 from stringsearch_torch.parallel import collectives as coll
 from stringsearch_torch.parallel.distsort import (
     host_flag,
@@ -130,85 +134,67 @@ def _shift_in_from_next(x_first, fill) -> list:
     return nxt
 
 
-def _last_flagged(flag: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """`cummax(where(flag, vals, -1))` for nondecreasing `vals`: the value
-    at the last flagged slot <= i, or -1 before the first.
-
-    A cumsum, a scatter and a gather: each flagged slot writes its value
-    to its segment's entry, every other slot to a private scratch entry.
-    """
-    n = flag.shape[0]
-    seg = torch.cumsum(flag, 0, dtype=vals.dtype) - 1
-    j = torch.arange(n, dtype=vals.dtype, device=vals.device)
-    buf = torch.empty((2 * n,), dtype=vals.dtype, device=vals.device)
-    buf[torch.where(flag, seg, n + j)] = vals
-    return torch.where(seg >= 0, buf[seg.clamp(min=0)], -1)
-
-
-def _eq_prev(keys_s, fill) -> list:
-    """Per shard: True where the sorted element's keys all equal its
-    global predecessor's (the boundary value shifted in from the previous
-    shard, `fill` on shard 0)."""
-    prev = shift_in_from_prev(coll.each(keys_s[0], lambda me: torch.stack(
-        [ks[me][-1] for ks in keys_s])), fill)
-
-    def eq_prev(me):
-        eq = None
-        for i, ks in enumerate(keys_s):
-            k = ks[me]
-            same = k == torch.cat([prev[me][i:i + 1], k[:-1]])
-            eq = same if eq is None else eq & same
-        return eq
-
-    return coll.each(prev, eq_prev)
-
-
-def _headslot_ranks_from_sorted(eq_prev, idx):
+def _sorted_head_ranks(keys_s, fill, idx, first_head: bool):
     """Global HEAD-SLOT rank of each sorted element, and the tied count.
 
     The head-slot rank is the global sorted slot of the element's tie
     group's FIRST member: order-isomorphic to a dense rank, equal to the
     final ISA once every group is a singleton, and what the rank-interval
-    sort's routing needs. `eq_prev` (per shard, bool [L]) is True where
-    the element's key equals its global predecessor's. Returns (rank
-    [per shard], count [replicated]): the number of tied SLOTS (a slot is
-    tied iff it is not its own head or the next slot shares its head);
-    0 iff resolved. A shard whose first elements continue an earlier
-    shard's group takes its carry from an all-gather of every shard's last
-    local head (a headless shard contributes -1).
+    sort's routing needs. `keys_s` (per key, per shard [L]) is the sorted
+    order's key planes: an element starts a group where its keys differ
+    from its global predecessor's (the boundary value shifted in from the
+    previous shard, `fill` on shard 0; the global first element always,
+    where `first_head`, since the fill could collide with a real key).
+    Returns (rank [per shard], count [replicated]): the number of tied
+    SLOTS (a slot is tied iff it is not its own head or the next slot
+    shares its head); 0 iff resolved.
+
+    One `shard_head_ranks` a shard (on CUDA one launch of the head-ranks
+    scan) gives its local heads as global slots, -1 before its first head,
+    and its tied count but for its last slot. A shard whose first elements
+    continue an earlier shard's group takes its carry from an all-gather
+    of every shard's last local head (a headless shard contributes -1):
+    the carry is below every head of the shard, so a max sets the prefix.
+    The last slot is tied through the boundary when it heads its group and
+    the next shard's first rank is the same.
     """
-    p = len(eq_prev)
-    length = coll.first_local(eq_prev).shape[0]
-    gslots = coll.each(eq_prev, lambda me: _global_iota(
-        me, length, idx, eq_prev[me].device))
-    heads = coll.each(eq_prev, lambda me: _last_flagged(~eq_prev[me],
-                                                        gslots[me]))
+    p = len(keys_s[0])
+    length = coll.first_local(keys_s[0]).shape[0]
+    prev = shift_in_from_prev(coll.each(keys_s[0], lambda me: torch.stack(
+        [ks[me][-1] for ks in keys_s])), fill)
+    heads, counts = [None] * p, [None] * p
+    for me in coll.local_parts(keys_s[0]):
+        heads[me], counts[me] = shard_head_ranks(
+            [ks[me] for ks in keys_s],
+            None if first_head and me == 0 else prev[me], me * length, idx)
+    del prev
     lasts = coll.all_gather(coll.each(heads, lambda me: heads[me][-1]))
 
     def ranked(me):
         mask = torch.arange(p, device=lasts[me].device) < me
         carry = torch.where(mask, lasts[me], -1).amax()
-        return torch.where(heads[me] >= 0, heads[me], carry)
+        return torch.maximum(heads[me], carry, out=heads[me])
 
     rank = coll.each(heads, ranked)
     del heads
     nf = _shift_in_from_next(coll.each(rank, lambda me: rank[me][:1]), -1)
 
     def tied_count(me):
-        rank_next = torch.cat([rank[me][1:], nf[me]])
-        tied = (rank[me] != gslots[me]) | (rank_next == rank[me])
-        return tied.sum(dtype=_I32)
+        last = rank[me][-1]
+        edge = (last == (me + 1) * length - 1) & (nf[me][0] == last)
+        return (counts[me] + edge).to(_I32)
 
     return rank, coll.psum(coll.each(rank, tied_count))
 
 
-def _initial_shard_ranks(depth: int, idx, chunks):
-    """Ranks by the first `depth` raw bytes (packed keys), shard-wise.
+def _initial_operands(depth: int, idx, chunks) -> tuple:
+    """The initial sort's operands, shard-wise: depth/4 packed key words
+    (int32, bit 31 flipped) of the first `depth` raw bytes, and the global
+    position.
 
     The window past a shard's end is the next shard's first `depth` bytes
     (one ppermute); past the LAST shard it is zero-filled — the raw-byte
-    conflation that the rounds' marker protocol repairs. Returns (rank,
-    sa, rank_s, count).
+    conflation that the rounds' marker protocol repairs.
     """
     p = len(chunks)
     length = coll.first_local(chunks).shape[0]
@@ -228,17 +214,19 @@ def _initial_shard_ranks(depth: int, idx, chunks):
                             | (ext[o + 2:o + 2 + length] << 8)
                             | ext[o + 3:o + 3 + length]) ^ _BIAS)
         gidx[me] = _global_iota(me, length, idx, chunks[me].device)
-    del nxt
-    out = sharded_sort(tuple(keys) + (gidx,), num_keys=nk)
-    del keys, gidx
+    return tuple(keys) + (gidx,)
+
+
+def _initial_shard_ranks(depth: int, idx, chunks):
+    """Ranks by the first `depth` raw bytes (packed keys), shard-wise: one
+    global sort of `_initial_operands`. Returns (rank, sa, rank_s,
+    count)."""
+    nk = depth // 4
+    out = sharded_sort(_initial_operands(depth, idx, chunks), num_keys=nk)
     keys_s, gidx_s = out[:nk], out[-1]
-    eq_prev = _eq_prev(keys_s, 0)
-    del keys_s, out
-    # the global first element is never equal to a predecessor (the fill
-    # could collide with a real key)
-    if eq_prev[0] is not None:
-        eq_prev[0][0] = False
-    rank_s, count = _headslot_ranks_from_sorted(eq_prev, idx)
+    del out
+    rank_s, count = _sorted_head_ranks(keys_s, 0, idx, first_head=True)
+    del keys_s
     # back to text order: gidx_s is a permutation, so one all_to_all
     (rank,) = redistribute_permutation(gidx_s, (rank_s,))
     return rank, gidx_s, rank_s, count
@@ -300,10 +288,9 @@ def _doubling_step(chunk_len: int, total_shards: int, idx, h: int, rank,
     out = rank_interval_sort((rank, *shifts, gidx), num_keys=fan + 1)
     del shifts, gidx
     keys_s, sa_s = out[:fan], out[-1]
-    eq_prev = _eq_prev(keys_s, -2)
-    del keys_s, out
-    rank_s, count = _headslot_ranks_from_sorted(eq_prev, idx)
-    del eq_prev
+    del out
+    rank_s, count = _sorted_head_ranks(keys_s, -2, idx, first_head=False)
+    del keys_s
     # ranks back to text order: sa_s is a permutation
     (rank,) = redistribute_permutation(sa_s, (rank_s,))
     return rank, sa_s, rank_s, count
@@ -435,8 +422,8 @@ def _compact_round(chunk_len: int, total_shards: int, idx, fan: int,
         for ks in out[1:-1]:
             kdiff |= ks[1:] != ks[:-1]
         run_f = group_f | torch.cat([one, kdiff])
-        ghead = _last_flagged(group_f, j2)
-        rhead = _last_flagged(run_f, j2)
+        ghead = last_flagged(group_f, j2)
+        rhead = last_flagged(run_f, j2)
         valid = g_s2 != big
         slot = torch.where(valid, g_s2 + (j2 - ghead), n_pad)
         new_g = torch.where(valid, g_s2 + (rhead - ghead), big)

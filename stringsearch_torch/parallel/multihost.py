@@ -243,7 +243,7 @@ def _selftest_run(pid: int, devs_per_proc: int, work: str, idx,
     import torch.distributed as dist
 
     from stringsearch_torch import NotSorted
-    from stringsearch_torch.ops import radix_sort
+    from stringsearch_torch.ops import merge, radix_sort, steps
     from stringsearch_torch.ops.bitonic import PlainSortCalls
     from stringsearch_torch.parallel import distsort, global_sa
     from stringsearch_torch.parallel.comm_model import executed_bytes
@@ -265,6 +265,8 @@ def _selftest_run(pid: int, devs_per_proc: int, work: str, idx,
         distsort.fallbacks.clear()
         global_sa.compact_fallbacks = 0
         radix_sort.launches = 0
+        merge.launches = 0
+        steps.launches["shard_head_ranks"] = 0
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.synchronize()
@@ -289,6 +291,8 @@ def _selftest_run(pid: int, devs_per_proc: int, work: str, idx,
         "fallbacks": dict(distsort.fallbacks),
         "compact_fallbacks": global_sa.compact_fallbacks,
         "radix_launches": radix_sort.launches,
+        "merge_launches": merge.launches,
+        "head_ranks_launches": steps.launches["shard_head_ranks"],
         "plain_sort_calls": plain.calls,
         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }
@@ -296,6 +300,11 @@ def _selftest_run(pid: int, devs_per_proc: int, work: str, idx,
     report["expected_bytes"] = executed_bytes(g)
     if cuda:
         _check(report["radix_launches"] > 0, "no radix sort launched")
+        # one shard in all has no partner to merge with
+        _check(report["merge_launches"] > 0 or p == 1,
+               "no merge_split launched")
+        _check(report["head_ranks_launches"] > 0,
+               "no shard_head_ranks launched")
         _check(plain.calls == 0, f"the plain sort ran {plain.calls} times")
 
     # this process's shards against the expected SA, slot for slot: slots
@@ -375,7 +384,9 @@ def _selftest_child(init: str, nproc: int, pid: int, devs_per_proc: int,
           f"{report['transport_s']:.4f} s of transport, bytes per shard "
           f"{report['bulk_bytes_per_shard']} (comm model "
           f"{report['expected_bytes']}), radix sort launches "
-          f"{report['radix_launches']}, plain sort calls "
+          f"{report['radix_launches']}, merge_split launches "
+          f"{report['merge_launches']}, shard_head_ranks launches "
+          f"{report['head_ranks_launches']}, plain sort calls "
           f"{report['plain_sort_calls']}, peak memory "
           f"{report['peak_bytes']} B", flush=True)
 

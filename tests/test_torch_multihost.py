@@ -319,4 +319,5 @@ def test_two_processes_on_the_card(cuda, tmp_path):
     for r in reports:
         assert r["backend"] == "gloo" and r["device"].startswith("cuda")
         assert r["radix_launches"] > 0 and r["plain_sort_calls"] == 0
+        assert r["merge_launches"] > 0 and r["head_ranks_launches"] > 0
         assert r["peak_bytes"] > 0
