@@ -20,11 +20,19 @@ present. Phases, each printed with its result and time:
      a constant key plane, a two-bit plane, ranks below 2^24 and all
      planes constant among the cases), and against its own plain version
      `plain_radix_sort`; the bitonic sort on its keys, its payloads as
-     multisets per tied block. Then the radix sort, the bitonic sort and
+     multisets per tied block, and on every plane against its own plain
+     version `plain_bitonic_sort` (the same network in torch ops), also
+     at n = 2, 3, a tile less one, a tile, a tile and one, 100,003 and
+     2^18 at the three shapes. Then the radix sort, the bitonic sort and
      the chained `torch.sort` timed with CUDA events at the main path's
-     three shapes at 2^28 on full-range random keys, and the radix sort
-     and the chained `torch.sort` on ranks below 2^28 with the position as
-     payload, beside the sort's bound and the radix design's own bytes;
+     three shapes at 2^28 on full-range random keys (the round shape's
+     bitonic output against `plain_bitonic_sort` on every plane), and the
+     radix sort and the chained `torch.sort` on ranks below 2^28 with the
+     position as payload, beside the sort's bound and the radix design's
+     own bytes; the bitonic sort's passes at 2^24 and 2^28 (its library's
+     schedule equal to `ops/bitonic.py:schedule`, at most 39 at 2^28);
+     the three sorts at 2^12, 2^16, 2^20 and 2^24 beside the bound, the
+     first key plane half dense ties;
   3. `build_suffix_array(enwik_like(2^28), device="cuda")`, then the
      device verify and the host oracle's sufcheck; over the build the
      radix sort's launch count must be > 0 and the bitonic sort's 0, and
@@ -276,6 +284,111 @@ def _exact_err(got, want) -> int:
     return max(max_abs_err(g, w) for g, w in zip(got, want))
 
 
+def timed_once(fn) -> tuple:
+    """(device ms, result) of one run of fn(), with CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _bitonic_planes(n: int, c: int, nk: int, gen) -> list:
+    """nk full-range random key planes, the first half of the first one
+    dense ties, then position planes."""
+    import torch
+
+    ops = [torch.randint(-2**31, INT32_MAX, (n,), dtype=torch.int32,
+                         device="cuda", generator=gen) for _ in range(nk)]
+    if n > 4:
+        ops[0][: n // 2] = torch.randint(-2, 2, (n // 2,), dtype=torch.int32,
+                                         device="cuda", generator=gen)
+    return ops + [torch.arange(n, dtype=torch.int32, device="cuda")
+                  for _ in range(c - nk)]
+
+
+def _bitonic_edge_cases(gen) -> list:
+    """The bitonic sort at the edges of its tile and schedule, at the main
+    path's shapes: n of 2, 3, a tile less one, a tile, a tile and one,
+    100,003 and 2^18, every plane against plain_bitonic_sort and the keys
+    against the plain sort, tolerance 0."""
+    from stringsearch_torch.ops import bitonic
+
+    out = []
+    for name, c, nk in SORT_SHAPES:
+        tile = 1 << bitonic.tile_log(c)
+        for n in (2, 3, tile - 1, tile, tile + 1, 100_003, 1 << 18):
+            ops = _bitonic_planes(n, c, nk, gen)
+            got = bitonic.bitonic_sort(ops, nk)
+            err = max(_exact_err(got, bitonic.plain_bitonic_sort(ops, nk)),
+                      _exact_err(got[:nk], bitonic.plain_sort(ops, nk)[:nk]))
+            check(err == 0, f"the bitonic sort disagrees with its plain "
+                            f"versions at {name} n={n}")
+            out.append({"shape": f"{name} C={c} keys={nk}", "n": n,
+                        "max_abs_err": err})
+    say(f"phase 2: bitonic sort at n = 2, 3, tile - 1, tile, tile + 1, "
+        f"100003, 2^18 on the three shapes: max_abs_err "
+        f"{max(e['max_abs_err'] for e in out)} on every plane (tolerance 0)")
+    return out
+
+
+def _bitonic_passes() -> dict:
+    """Passes of one bitonic sort by shape at 2^24 and 2^28, the kernel's
+    own schedule held against `schedule`'s, and at most 39 at 2^28."""
+    from stringsearch_torch.ops import bitonic
+
+    out = {}
+    for name, c, nk in SORT_SHAPES:
+        for log2n in (24, LOG2N):
+            n = 1 << log2n
+            listed = bitonic.schedule(n, c)
+            check(bitonic.kernel_schedule(n, c) == listed,
+                  f"the kernel's schedule differs from schedule({n}, {c})")
+            out[f"{name} C={c} 2^{log2n}"] = len(listed)
+    say(f"phase 2: bitonic passes over the planes (the kernel's schedule "
+        f"equal to ops/bitonic.py:schedule): {out}")
+    check(all(v <= 39 for k, v in out.items() if k.endswith(f"2^{LOG2N}")),
+          "a bitonic sort at 2^28 makes more than 39 passes")
+    return out
+
+
+def _bitonic_sizes(gen) -> list:
+    """The bitonic sort, the radix sort and the chained `torch.sort` at
+    2^12, 2^16, 2^20 and 2^24 at the three shapes on `_bitonic_planes`
+    (full-range random keys, half of the first plane dense ties), beside
+    the bound (2^28 is timed with the main loop above)."""
+    from stringsearch_torch.ops import bitonic, radix_sort
+
+    out = []
+    for log2n in (12, 16, 20, 24):
+        n = 1 << log2n
+        reps = 20 if log2n <= 16 else 5
+        for name, c, nk in SORT_SHAPES:
+            ops = _bitonic_planes(n, c, nk, gen)
+            row = {"shape": f"{name} C={c} keys={nk}", "n": n,
+                   "passes": len(bitonic.schedule(n, c)),
+                   "bitonic_ms": cuda_ms(
+                       lambda: bitonic.bitonic_sort(ops, nk), reps),
+                   "radix_ms": cuda_ms(
+                       lambda: radix_sort.radix_sort(ops, nk), reps),
+                   "library_ms": cuda_ms(
+                       lambda: bitonic.plain_sort(ops, nk), reps),
+                   **sort_bounds(n, c, nk)}
+            say(f"phase 2: 2^{log2n} {row['shape']}: bitonic "
+                f"{row['bitonic_ms']:.4f} ms in {row['passes']} passes, "
+                f"radix {row['radix_ms']:.4f} ms, chained torch.sort "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']} ms")
+            out.append({k: round(v, 4) if isinstance(v, float) else v
+                        for k, v in row.items()})
+            del ops
+    return out
+
+
 def phase2_sorts_vs_plain() -> dict:
     """Both sort kernels against the plain sort at 2^24, then timed with the
     chained `torch.sort` at the main path's shapes at 2^28. Returns one
@@ -352,23 +465,30 @@ def phase2_sorts_vs_plain() -> dict:
             bitonic_err = max(bitonic_err, _exact_err(
                 canonical(want[:nk], got[nk:]),
                 canonical(want[:nk], want[nk:])))
+        # the same network in torch ops: every plane, payloads included
+        network_err = _exact_err(got, bitonic.plain_bitonic_sort(ops, nk))
         del got, want
         radix_ms = cuda_ms(lambda: radix_sort.radix_sort(ops, nk), 3)
         bitonic_ms = cuda_ms(lambda: bitonic.bitonic_sort(ops, nk), 3)
         plain_ms = cuda_ms(lambda: bitonic.plain_sort(ops, nk), 3)
         say(f"phase 2: {name} n={n}: max_abs_err radix {radix_err}, bitonic "
-            f"{bitonic_err} (tolerance 0); radix {radix_ms:.3f} ms, bitonic "
-            f"{bitonic_ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"{bitonic_err}, bitonic against plain_bitonic_sort on every "
+            f"plane {network_err} (tolerance 0); radix {radix_ms:.3f} ms, "
+            f"bitonic {bitonic_ms:.3f} ms, plain {plain_ms:.3f} ms")
         check(radix_err == 0, f"the radix sort disagrees with the plain sort "
                               f"on {name}")
         check(bitonic_err == 0, f"the bitonic sort disagrees with the plain "
                                 f"sort on {name}")
+        check(network_err == 0, f"the bitonic sort disagrees with "
+                                f"plain_bitonic_sort on {name}")
         for kernel, err, ms in (("radix_sort", radix_err, radix_ms),
-                                ("bitonic_sort", bitonic_err, bitonic_ms)):
+                                ("bitonic_sort",
+                                 max(bitonic_err, network_err), bitonic_ms)):
             reports[kernel]["shapes"].append({
                 "shape": name, "n": n, "max_abs_err": err,
                 "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)})
         del ops
+    reports["bitonic_sort"]["edge_cases"] = _bitonic_edge_cases(gen)
 
     # the radix kernel against its own plain version, pass for pass
     ops = [rand(n24, -2**31, INT32_MAX), rand(n24, -8, 8), iota[:n24]]
@@ -401,33 +521,54 @@ def phase2_sorts_vs_plain() -> dict:
         got = bitonic.bitonic_sort(ops, nk)
         torch.cuda.synchronize()
         bitonic_err = _exact_err(got[:nk], want[:nk])
-        del got, want
+        del want
+        network_ms = None
+        if name == "round":
+            # the largest shape against its plain version on every plane,
+            # timed in the one run (about 10 s of torch ops)
+            network_ms, same = timed_once(
+                lambda: bitonic.plain_bitonic_sort(ops, nk))
+            bitonic_err = max(bitonic_err, _exact_err(got, same))
+            del same
+        del got
         radix_ms = cuda_ms(lambda: radix_sort.radix_sort(ops, nk), 2)
         bitonic_ms = cuda_ms(lambda: bitonic.bitonic_sort(ops, nk), 1)
         library_ms = cuda_ms(lambda: bitonic.plain_sort(ops, nk), 2)
         bounds = sort_bounds(n, c, nk)
+        passes = len(bitonic.schedule(n, c))
         say(f"phase 2: {name} C={c} keys={nk} n=2^{LOG2N}: max_abs_err radix "
-            f"{radix_err}, bitonic keys {bitonic_err} (tolerance 0); radix "
-            f"{radix_ms:.3f} ms, bitonic {bitonic_ms:.3f} ms, chained "
-            f"torch.sort {library_ms:.3f} ms; bound {bounds['bound_ms']} ms "
+            f"{radix_err}, bitonic {bitonic_err} (keys; every plane against "
+            f"plain_bitonic_sort on the round shape; tolerance 0); radix "
+            f"{radix_ms:.3f} ms, bitonic {bitonic_ms:.3f} ms in {passes} "
+            f"passes, chained torch.sort {library_ms:.3f} ms"
+            + (f", plain_bitonic_sort {network_ms:.3f} ms"
+               if network_ms else "")
+            + f"; bound {bounds['bound_ms']} ms "
             f"(every plane once); the radix design's own bytes take "
             f"{radix_design_ms(n, c, nk, live)} ms ({sum(live)} of "
             f"{len(live)} passes live)")
         check(radix_err == 0, f"the radix sort disagrees with the plain sort "
                               f"at 2^{LOG2N}, {name}")
-        check(bitonic_err == 0, f"the bitonic sort's keys disagree with the "
-                                f"plain sort at 2^{LOG2N}, {name}")
+        check(bitonic_err == 0, f"the bitonic sort disagrees with the plain "
+                                f"sorts at 2^{LOG2N}, {name}")
         for kernel, err, ms in (("radix_sort", radix_err, radix_ms),
                                 ("bitonic_sort", bitonic_err, bitonic_ms)):
             # the chained torch.sort is the library call and, as
-            # `plain_sort`, the plain version device_sort takes on the CPU
+            # `plain_sort`, the plain version device_sort takes on the CPU;
+            # the bitonic sort's plain version is plain_bitonic_sort
+            plain_ms = library_ms
+            if kernel == "bitonic_sort" and network_ms is not None:
+                plain_ms = network_ms
             reports[kernel]["shapes"].append({
                 "shape": f"{name} C={c} keys={nk}", "n": n,
                 "max_abs_err": err, "ms": round(ms, 4),
-                "plain_ms": round(library_ms, 4),
-                "library_ms": round(library_ms, 4), **bounds})
+                "plain_ms": round(plain_ms, 4),
+                "library_ms": round(library_ms, 4), **bounds,
+                **({"passes": passes} if kernel == "bitonic_sort" else {})})
         del ops
         torch.cuda.empty_cache()
+    reports["bitonic_sort"]["passes"] = _bitonic_passes()
+    reports["bitonic_sort"]["sizes"] = _bitonic_sizes(gen)
 
     # the same shapes on the main path's own keys: ranks below n, the
     # position as payload
@@ -2244,6 +2385,7 @@ def main() -> int:
         head = next(s for s in shapes if s["shape"].startswith("round")
                     and s["n"] == 1 << LOG2N)
         errs = [s["max_abs_err"] for s in shapes]
+        errs += [s["max_abs_err"] for s in more.get("edge_cases", [])]
         if "fault_repair" in more:
             errs += [s["max_abs_err"]
                      for s in more["fault_repair"]["wide_sort"]]
@@ -2342,7 +2484,10 @@ def main() -> int:
                    global_build=global_report,
                    multihost=multihost_report),
         sort_entry("bitonic_sort", "stringsearch_torch/ops/csrc/bitonic.cu",
-                   build["bitonic_launches"]),
+                   build["bitonic_launches"],
+                   edge_cases=sorts["bitonic_sort"]["edge_cases"],
+                   passes=sorts["bitonic_sort"]["passes"],
+                   sizes=sorts["bitonic_sort"]["sizes"]),
         *radix_kernels, *step_kernels, *global_kernels]}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -42,8 +42,9 @@ only this harness routes there, never the engines.
     python -m stringsearch_torch.harness.profile_build multihost
     python -m stringsearch_torch.harness.profile_build steps
     python -m stringsearch_torch.harness.profile_build merge
+    python -m stringsearch_torch.harness.profile_build bitonic
 
-run the last four parts alone; `steps` runs the flat, the partitioned
+run one part alone; `steps` runs the flat, the partitioned
 (P = 4) and the bstar build at 2^28 with the step kernels and with the
 plain steps in turns (kernels, plain, plain, kernels), the same numbers
 for each. `merge` runs the global build at 2^28 on four shards of one
@@ -52,7 +53,9 @@ route through them (old, new, new, old): the old route merges by a
 `device_sort` of each concatenation and ranks heads with the plain chain
 (`plain_merge_split` and `plain_shard_head_ranks` on the card, which
 only this harness does), the new one runs `merge_split` and
-`shard_head_ranks`.
+`shard_head_ranks`. `bitonic` runs the flat build at 2^28 with every sort
+on the bitonic kernel in turns with the radix sort (radix, bitonic,
+bitonic, radix), the same numbers for each.
 """
 
 from __future__ import annotations
@@ -433,6 +436,22 @@ def compaction_walls() -> None:
               f"{total:.4f} s", flush=True)
 
 
+def profile_bitonic() -> None:
+    """The flat build at 2^28 with every sort on the bitonic kernel, in
+    turns with the radix sort: radix, bitonic, bitonic, radix."""
+    bitonic.load_library()
+    text = torch.from_numpy(np.frombuffer(
+        enwik_like(1 << 28), dtype=np.uint8).copy()).to("cuda")
+    for turn, (label, sort) in enumerate(
+            (("radix kernel", bitonic.device_sort),
+             ("bitonic kernel", bitonic.bitonic_sort),
+             ("bitonic kernel", bitonic.bitonic_sort),
+             ("radix kernel", bitonic.device_sort)), 1):
+        profile(f"2^28 build, {label} (turn {turn})",
+                lambda: _one_build(text), sort, nbytes=1 << 28)
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -458,6 +477,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["steps"]:
         profile_steps()
+        return
+    if sys.argv[1:] == ["bitonic"]:
+        profile_bitonic()
         return
     bitonic.load_library()
     for log2n in SIZES:

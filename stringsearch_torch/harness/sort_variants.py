@@ -3,22 +3,26 @@ destination kernel buys, on one GPU.
 
     python -m stringsearch_torch.harness.sort_variants [FAMILY ...]
 
-The families are `sort`, `bitonic`, `dest` and `earlier`; with no argument
-the first three run. `sort` builds copies of
-`ops/csrc/radix_sort.cu` (the sort behind `device_sort`) with one choice
-changed (the text replacements of RADIX_VARIANTS, each of which must match
-its source exactly once: digit width, tile and block, how a plane reaches
-shared memory, ballots or `__match_any_sync`), checks every copy against
-the plain sort on every plane, and times each with CUDA events at the main
-path's plane counts, at n = 2^24 and 2^28, on full-range random int32 keys
-and on random ranks below n, each with position planes as payload. A radix
-time includes the allocation of its two scratch sets, as `radix_sort`
-makes them. The variants run in order, then in reverse order, so a drift
-of the card's clock shows as a gap between the two times of one variant.
-`bitonic` does the same for copies of `ops/csrc/bitonic.cu` (VARIANTS,
-checked on their keys: the network is unstable) beside the plain sort; a
-bitonic time includes the copy of the input planes, as `bitonic_sort`
-makes one.
+The families are `sort`, `bitonic`, `dest`, `earlier`, `bitonic_earlier`
+and `bitonic_passes`; with no argument the first three run. `sort` builds
+copies of `ops/csrc/radix_sort.cu` (the sort behind `device_sort`) with
+one choice changed (the text replacements of RADIX_VARIANTS, each of
+which must match its source exactly once: digit width, tile and block, how
+a plane reaches shared memory, ballots or `__match_any_sync`), checks
+every copy against the plain sort on every plane, and times each with
+CUDA events at the main path's plane counts, at n = 2^24 and 2^28, on
+full-range random int32 keys and on random ranks below n, each with
+position planes as payload. A radix time includes the allocation of its
+two scratch sets, as `radix_sort` makes them. The variants run in order,
+then in reverse order, so a drift of the card's clock shows as a gap
+between the two times of one variant.
+`bitonic` does the same for copies of `ops/csrc/bitonic.cu` (VARIANTS:
+the tile, the group width, the mirror's own pass, the swizzle, the stages
+a round, the key count compiled in), at full-range random keys beside the
+radix sort and the chained `torch.sort`; every copy runs the same
+network, so each must equal the as-built copy on every plane and the
+plain sort on its keys. A bitonic time includes the allocation of its
+outputs, as `bitonic_sort` makes them.
 
 `dest` does the same for `ss_radix_dest` of `ops/csrc/radix.cu`
 (DEST_VARIANTS: how the lanes of a bin find each other, the form of the
@@ -29,7 +33,10 @@ build (registers, stack, machine operations a segment), holds it against
 one-bin keys at tiles 1024, 2048 and 8192, two readings as above.
 
 `earlier` times the radix sort against an earlier design of it, whose
-source the caller puts at EARLIER_SOURCE (`earlier_main`).
+source the caller puts at EARLIER_SOURCE (`earlier_main`);
+`bitonic_earlier` the bitonic sort against its earlier design at
+EARLIER_BITONIC (`bitonic_earlier_main`); `bitonic_passes` the device time
+of each kind of pass of one bitonic sort (`bitonic_passes_main`).
 
 The copies are written to and built in `stringsearch_torch/_build/variants/`.
 Needs a CUDA device.
@@ -37,6 +44,7 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import re
 import subprocess
@@ -47,19 +55,32 @@ import torch
 
 from stringsearch_torch.ops import _build, bitonic, radix, radix_sort
 
-_DEVICE_STAGES = "constexpr int kGlobalGroupStages = 3;"
-_TILE_STAGES = "constexpr int kTileGroupStages = 2;"
-_SHARED_INDEX = "return s[q * tile + i];"
-
 # bitonic.cu
+_TILE_WIDE = "constexpr int kTileLogWide = 13;"
+_ROW = "constexpr int kRowLog = 5;"
+_FUSE = "constexpr bool kFuseMirror = true;"
+_SWIZZLE = "constexpr bool kSwizzle = true;"
+_ROUND = "constexpr int kChunkStages = 3;"
+_THREADS_B = "constexpr int kThreads = 512;"
+_KEYS = "constexpr bool kKeysCompiled = true;"
 VARIANTS = {
     "as built": (),
-    "device stages 2": ((_DEVICE_STAGES, _DEVICE_STAGES.replace("3", "2")),),
-    "device stages 1": ((_DEVICE_STAGES, _DEVICE_STAGES.replace("3", "1")),),
-    "tile stages 1": ((_TILE_STAGES, _TILE_STAGES.replace("2", "1")),),
-    # XOR of bits 2..6 into bits 0..4 of the shared-memory index
-    "swizzle": ((_SHARED_INDEX,
-                 "return s[q * tile + (i ^ ((i >> 2) & 31))];"),),
+    # the earlier design's tile, 4096 elements, for C = 4..6 (and S = 7)
+    "tile 4096": ((_TILE_WIDE, _TILE_WIDE.replace("13", "12")),),
+    # group passes of S - 1 stages on rows of 64 elements
+    "group stages S-1": ((_ROW, _ROW.replace("5", "6")),),
+    # each level's mirror stage in a group pass of its own
+    "no mirror fusion": ((_FUSE, _FUSE.replace("true", "false")),),
+    # shared-memory words in order: bank conflicts in the rounds on bits
+    # 5..3 and below
+    "no swizzle": ((_SWIZZLE, _SWIZZLE.replace("true", "false")),),
+    # two stages a shared-memory round trip instead of three
+    "two stages a round": ((_ROUND, _ROUND.replace("3", "2")),),
+    # four, 16 elements a thread, on blocks of 256 threads
+    "four stages a round": ((_ROUND, _ROUND.replace("3", "4")),
+                            (_THREADS_B, _THREADS_B.replace("512", "256"))),
+    # the key count read at run time by one build for each plane count
+    "key count at run time": ((_KEYS, _KEYS.replace("true", "false")),),
 }
 
 _TILE = "constexpr int kTile = 16384;"
@@ -118,6 +139,7 @@ RADIX_VARIANTS = {
                                                     digits=11),
 }
 SHAPES = ((2, 1), (4, 3), (5, 4))  # (planes, keys): invert, initial, round
+BYTES_PER_S = 3.35e12  # one H100's device memory
 SIZES = (24, 28)
 
 
@@ -218,8 +240,8 @@ def variant_source(name: str) -> str:
 
 
 def _bitonic_sorted(lib, planes, nk):
-    out = tuple(p.clone() for p in planes)
-    bitonic.launch_sort(lib, out, nk)
+    out = tuple(torch.empty_like(p) for p in planes)
+    bitonic.launch_sort(lib, planes, out, nk)
     return out
 
 
@@ -341,9 +363,9 @@ def _keyed_planes(kind: str, n: int, c: int, nk: int, gen) -> tuple:
 
 
 def _sweep(sorts: dict, sizes, kinds, reps: int = 3) -> None:
-    """Check every sort of `sorts` (name -> (sort, planes compared:
-    "all" or "keys")) against the plain sort, then time each with CUDA
-    events, in order and in reverse order, at the main path's shapes."""
+    """Check every sort of `sorts` (name -> sort) against the plain sort
+    on every plane, then time each with CUDA events, in order and in
+    reverse order, at the main path's shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     order = list(sorts) + list(reversed(sorts))
@@ -353,18 +375,16 @@ def _sweep(sorts: dict, sizes, kinds, reps: int = 3) -> None:
             for c, nk in SHAPES:
                 planes = _keyed_planes(kind, n, c, nk, gen)
                 want = bitonic.plain_sort(planes, nk)
-                for name, (sort, compared) in sorts.items():
+                for name, sort in sorts.items():
                     got = sort(planes, nk)
-                    upto = c if compared == "all" else nk
-                    if not all(torch.equal(g, w)
-                               for g, w in zip(got[:upto], want[:upto])):
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
                         raise RuntimeError(f"variant {name!r} sorts wrongly")
                     del got
                 del want
                 times = {name: [] for name in sorts}
                 for name in order:
                     times[name].append(
-                        _ms(lambda: sorts[name][0](planes, nk), reps))
+                        _ms(lambda: sorts[name](planes, nk), reps))
                 label = f"2^{log2n} {kind} C={c} keys={nk}"
                 for name, (first, second) in times.items():
                     print(f"{label} {name:40s} {first:.4f} / {second:.4f} ms",
@@ -379,21 +399,171 @@ def sort_main() -> None:
     for name in RADIX_VARIANTS:
         lib = radix_sort.build(name.replace(" ", "_"), variant_source(name))
         sorts[name] = (lambda planes, nk, lib=lib:
-                       radix_sort.launch_sort(lib, planes, nk), "all")
+                       radix_sort.launch_sort(lib, planes, nk))
     _sweep(sorts, SIZES, ("random", "ranks"))
 
 
 def bitonic_main() -> None:
-    """Check and time every copy of the bitonic sort, beside the plain
-    sort."""
-    sorts = {}
-    for name in VARIANTS:
-        lib = bitonic.build("bitonic_" + name.replace(" ", "_"),
-                            variant_source(name))
-        sorts["bitonic " + name] = (lambda planes, nk, lib=lib:
-                                    _bitonic_sorted(lib, planes, nk), "keys")
-    sorts["plain sort"] = (bitonic.plain_sort, "all")
-    _sweep(sorts, SIZES, ("random",))
+    """Check and time every copy of the bitonic sort, beside the chained
+    `torch.sort` and the radix sort. Every copy runs the same network, so
+    each must equal the as-built copy on every plane, and its keys the
+    plain sort's."""
+    names = list(VARIANTS)
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(
+            lambda name: bitonic.build("bitonic_" + name.replace(" ", "_"),
+                                       variant_source(name)), names))
+    sorts = {"bitonic " + name: (lambda planes, nk, lib=lib:
+                                 _bitonic_sorted(lib, planes, nk))
+             for name, lib in zip(names, libs)}
+    sorts["radix sort"] = radix_sort.radix_sort
+    sorts["plain sort"] = bitonic.plain_sort
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    order = list(sorts) + list(reversed(sorts))
+    for log2n in SIZES:
+        n = 1 << log2n
+        for c, nk in SHAPES:
+            planes = _keyed_planes("random", n, c, nk, gen)
+            want = bitonic.plain_sort(planes, nk)
+            built = sorts["bitonic as built"](planes, nk)
+            if not all(torch.equal(g, w) for g, w in zip(built[:nk],
+                                                         want[:nk])):
+                raise RuntimeError("the bitonic sort's keys are wrong")
+            del want
+            for name, sort in sorts.items():
+                if not name.startswith("bitonic"):
+                    continue
+                got = sort(planes, nk)
+                if not all(torch.equal(g, w) for g, w in zip(got, built)):
+                    raise RuntimeError(f"{name!r} differs from as built")
+                del got
+            del built
+            times = {name: [] for name in sorts}
+            for name in order:
+                times[name].append(
+                    _ms(lambda: sorts[name](planes, nk),
+                        1 if log2n >= 28 and name.startswith("bitonic")
+                        else 3))
+            label = f"2^{log2n} random C={c} keys={nk}"
+            for name, (first, second) in times.items():
+                print(f"{label} {name:40s} {first:.4f} / {second:.4f} ms",
+                      flush=True)
+            print(f"{label} passes {len(bitonic.schedule(n, c))}, bound "
+                  f"{8 * c * n / BYTES_PER_S * 1e3:.4f} ms", flush=True)
+            del planes
+            torch.cuda.empty_cache()
+
+
+def bitonic_passes_main() -> None:
+    """The device time of each pass of one bitonic sort, from
+    `torch.profiler`, summed by kind (sort; group, with the mirror or not,
+    by its stages; tile), at 2^24 and 2^28 at the main path's shapes,
+    each beside one pass's bytes (every plane read and written once)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for log2n in SIZES:
+        n = 1 << log2n
+        for c, nk in SHAPES:
+            planes = _keyed_planes("random", n, c, nk, gen)
+            bitonic.bitonic_sort(planes, nk)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                bitonic.bitonic_sort(planes, nk)
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events()
+                             if str(e.device_type).endswith("CUDA")
+                             and "pass_kernel" in e.name),
+                            key=lambda e: e.time_range.start)
+            passes = bitonic.schedule(n, c)
+            if len(events) != len(passes):
+                raise RuntimeError(f"{len(events)} kernels for "
+                                   f"{len(passes)} passes")
+            kinds = {}
+            for p, e in zip(passes, events):
+                kind = p.kind
+                if p.kind == "group":
+                    kind += (" with mirror" if p.hi == p.level - 1 else "") \
+                        + f" w={p.hi - p.lo + 1}"
+                count, ms = kinds.get(kind, (0, 0.0))
+                kinds[kind] = (count + 1, ms + e.time_range.elapsed_us() / 1e3)
+            one = 8 * c * n / BYTES_PER_S * 1e3
+            total = sum(ms for _, ms in kinds.values())
+            print(f"2^{log2n} C={c} keys={nk}: {total:.4f} ms in "
+                  f"{len(passes)} passes, one pass's bytes {one:.4f} ms; "
+                  + "; ".join(f"{k} {cnt} x {ms / cnt:.4f} ms "
+                              f"({one / (ms / cnt):.3f} of bytes)"
+                              for k, (cnt, ms) in sorted(kinds.items())),
+                  flush=True)
+            del planes
+            torch.cuda.empty_cache()
+
+
+# where `bitonic_earlier` finds the earlier design's source: the in-place
+# interface `ss_bitonic_sort_i32(planes, c, n, num_keys, stream)`
+EARLIER_BITONIC = os.path.join(_build.BUILD_DIR, "earlier", "bitonic.cu")
+
+
+def _earlier_bitonic():
+    """The sort of EARLIER_BITONIC as `bitonic_sort` called it then: a
+    copy of every plane, sorted in place."""
+    path = _build.build_library("earlier_bitonic", [EARLIER_BITONIC],
+                                [_build.nvcc(), *_build.NVCC_FLAGS])
+    lib = ctypes.CDLL(path)
+    lib.ss_bitonic_sort_i32.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.ss_bitonic_sort_i32.restype = ctypes.c_int
+
+    def sort(planes, nk):
+        out = tuple(p.clone() for p in planes)
+        ptrs = (ctypes.c_void_p * len(out))(*(p.data_ptr() for p in out))
+        stream = torch.cuda.current_stream().cuda_stream
+        if lib.ss_bitonic_sort_i32(ptrs, len(out), out[0].shape[0], nk,
+                                   stream):
+            raise RuntimeError("the earlier bitonic sort failed to launch")
+        return out
+    return sort
+
+
+def bitonic_earlier_main() -> None:
+    """The bitonic sort against its earlier design, built from
+    EARLIER_BITONIC (`git show 08ae4c1:stringsearch_torch/ops/csrc/
+    bitonic.cu`, the design before this one): both checked against the plain sort on their
+    keys, then timed in turns, plain, earlier, now, now, earlier, plain, at
+    2^24 and 2^28 at the main path's shapes, beside the bound and each
+    design's passes."""
+    if not os.path.exists(EARLIER_BITONIC):
+        raise SystemExit(f"no earlier source at {EARLIER_BITONIC}")
+    sorts = {"plain sort": bitonic.plain_sort, "earlier": _earlier_bitonic(),
+             "now": bitonic.bitonic_sort}
+    turns = ("plain sort", "earlier", "now", "now", "earlier", "plain sort")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for log2n in SIZES:
+        n = 1 << log2n
+        for c, nk in SHAPES:
+            planes = _keyed_planes("random", n, c, nk, gen)
+            want = bitonic.plain_sort(planes, nk)
+            for name, sort in sorts.items():
+                got = sort(planes, nk)
+                if not all(torch.equal(g, w)
+                           for g, w in zip(got[:nk], want[:nk])):
+                    raise RuntimeError(f"{name} sorts wrongly")
+                del got
+            del want
+            times = {name: [] for name in sorts}
+            for name in turns:
+                times[name].append(_ms(lambda: sorts[name](planes, nk),
+                                       1 if log2n >= 28 else 3))
+            print(f"2^{log2n} random C={c} keys={nk} "
+                  + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
+                              for k, v in times.items())
+                  + f"; passes now {len(bitonic.schedule(n, c))}; bound "
+                  f"{8 * c * n / BYTES_PER_S * 1e3:.4f} ms", flush=True)
+            del planes
+            torch.cuda.empty_cache()
 
 
 # where `earlier` finds the source of the design to compare with
@@ -421,7 +591,6 @@ def earlier_main() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     n = 1 << 28
-    rate = 3.35e12
     # the main path's shapes, and the six-plane launch of a `wide_sort`
     for kind in ("random", "ranks"):
         for c, nk in SHAPES + ((6, 5),):
@@ -438,11 +607,11 @@ def earlier_main() -> None:
                 times[name].append(_ms(lambda: sorts[name](planes, nk)))
             live = radix_sort.plan(planes, nk)[1]
             ms = {
-                "bound": 8 * c * n / rate * 1e3,
+                "bound": 8 * c * n / BYTES_PER_S * 1e3,
                 "earlier design bytes": 4 * nk * (2 * c + 1) * 4 * n
-                / rate * 1e3,
+                / BYTES_PER_S * 1e3,
                 "design bytes": radix_sort.design_bytes(n, c, nk, live)
-                / rate * 1e3,
+                / BYTES_PER_S * 1e3,
             }
             print(f"2^28 {kind} C={c} keys={nk} "
                   + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
@@ -456,7 +625,9 @@ def earlier_main() -> None:
 
 def main(argv=None) -> None:
     families = {"sort": sort_main, "bitonic": bitonic_main,
-                "dest": dest_main, "earlier": earlier_main}
+                "dest": dest_main, "earlier": earlier_main,
+                "bitonic_earlier": bitonic_earlier_main,
+                "bitonic_passes": bitonic_passes_main}
     chosen = list(sys.argv[1:] if argv is None else argv) or [
         "sort", "bitonic", "dest"]
     for name in chosen:

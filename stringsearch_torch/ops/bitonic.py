@@ -13,10 +13,20 @@ element for element: the radix sort by construction, the plain version as
 a chained stable `torch.sort`.
 
 `bitonic_sort` is the port of the bitonic network itself
-(`csrc/bitonic.cu`). It is NOT stable (bitonic networks are not) and is
-slower than the radix sort at every shape the engine uses (PERF.md), so
-nothing routes through it; it stays as the counterpart of the two TPU
-kernels, held against the plain version by its tests and `chip_smoke.py`.
+(`csrc/bitonic.cu`), the all-ascending network with every comparator past
+n skipped. It runs the passes `schedule` lists: one pass sorts each tile
+of 2^13 to 2^15 elements in shared memory, and every merge level past the
+tile takes ceil(stages past the tile / S) group passes (S = log2(tile) -
+5 stages each, the level's mirror stage in the first) and one tile pass:
+38 passes at n = 2^28 with four to six planes, 34 with two or three.
+`plain_bitonic_sort` runs the same passes in torch ops, block by block as
+the kernel does, so the two agree element for element on every plane. On
+an H100 at n = 2^28 the kernel takes 85.5, 180.2 and 223.3 ms for the main
+path's 2-, 4- and 5-plane sorts, 1.4 to 2.5 times the chained
+`torch.sort` and 2.9 to 7.2 times the radix sort (PERF.md). The network
+is NOT stable, so nothing routes through it: `device_sort` must equal
+`lax.sort` element for element. It stays as the counterpart of the two
+TPU kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +45,9 @@ _SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "bitonic.cu")
 _MAX_PLANES = 6
 # keys a `wide_sort` launch takes: the sixth plane is the permutation
 _GROUP = _MAX_PLANES - 1
+# log2 of the shortest row a group pass stages (`kRowLog`)
+ROW_LOG = 5
+_KINDS = ("sort", "group", "tile")
 
 # Number of kernel sorts launched by `bitonic_sort` in this process.
 launches = 0
@@ -42,15 +56,185 @@ _lock = threading.Lock()
 _lib = None
 
 
+def tile_log(num_planes: int) -> int:
+    """log2 of the kernel's tile for `num_planes` planes: the largest power
+    of two whose planes fit in shared memory (`csrc/bitonic.cu`)."""
+    return 15 if num_planes == 1 else 14 if num_planes <= 3 else 13
+
+
+class Pass(NamedTuple):
+    """One pass over the planes. "sort": merge levels 1 .. level inside
+    each tile. "group": the stages of merge level `level` on bits hi .. lo
+    (all at or past the tile), its mirror stage among them when hi ==
+    level - 1. "tile": the half-cleaners of bits hi .. lo = t-1 .. 0 that
+    end level `level`."""
+    kind: str
+    level: int
+    hi: int
+    lo: int
+
+
+def schedule(n: int, num_planes: int, tile: int | None = None,
+             group_stages: int | None = None) -> list[Pass]:
+    """The passes of one sort of n elements, in order, as the kernel runs
+    them (`make_schedule`): tile 2^tile_log(num_planes) and group passes of
+    S = log2(tile) - ROW_LOG stages unless given. Below one tile, one sort
+    pass; past it, each level's stages at or past the tile in groups of at
+    most S (the first group takes the remainder), then a tile pass."""
+    if n < 2:
+        return []
+    t_max = tile_log(num_planes) if tile is None else tile.bit_length() - 1
+    if tile is not None and (tile < 2 or tile & (tile - 1)):
+        raise ValueError(f"tile must be a power of two >= 2, got {tile}")
+    most = t_max - ROW_LOG if group_stages is None else group_stages
+    if not 1 <= most <= t_max:
+        raise ValueError(f"group_stages must be in 1..{t_max}, got {most}")
+    log_full = (n - 1).bit_length()
+    t = min(t_max, log_full)
+    passes = [Pass("sort", t, t - 1, 0)]
+    for level in range(t + 1, log_full + 1):
+        hi = level - 1
+        while hi >= t:
+            width = (hi - t) % most + 1
+            passes.append(Pass("group", level, hi, hi - width + 1))
+            hi -= width
+        passes.append(Pass("tile", level, t - 1, 0))
+    return passes
+
+
+def pass_stages(p: Pass) -> list[tuple[int, int]]:
+    """The network's stages that pass p runs, in order, as (level, bit):
+    bit level - 1 is the level's mirror stage, a lower bit a
+    half-cleaner."""
+    if p.kind == "sort":
+        return [(level, b) for level in range(1, p.level + 1)
+                for b in range(level - 1, -1, -1)]
+    return [(p.level, b) for b in range(p.hi, p.lo - 1, -1)]
+
+
+def _rows_below(base, lo: int, r: int, rows: int, n: int):
+    """Elements below n among `rows` rows of 2^r at stride 2^lo from each
+    base (`rows_below`)."""
+    d = n - base
+    x = d >> lo
+    part = (d - (x << lo)).clamp(max=1 << r)
+    count = torch.where(x >= rows, rows << r, (x << r) + part)
+    return torch.where(d <= 0, 0, count)
+
+
+def _frame(p: Pass, t: int, full: int, n: int, device) -> tuple:
+    """Device positions of each block's elements in local order, [blocks,
+    2^t] and increasing along a row, and each block's count of elements
+    below n (the kernel's `Frame` and `valid`)."""
+    size = 1 << t
+    if p.kind != "group":
+        base = torch.arange(0, full, size, device=device)
+        pos = base[:, None] + torch.arange(size, device=device)
+        return pos, _rows_below(base, t, t, 1, n)
+    w = p.hi - p.lo + 1
+    r = t - w
+    low_bits = p.lo - r
+    low_mask = (1 << low_bits) - 1
+    block = torch.arange(full >> t, device=device)
+    base = ((block >> low_bits) << (p.lo + w)) | ((block & low_mask) << r)
+    starts = base[:, None] + (torch.arange(1 << w, device=device) << p.lo)
+    half = 1 << (w - 1)
+    if p.hi == p.level - 1:
+        # the mirrored frame: the upper half's rows from the complemented
+        # block-row bits, in device order
+        starts[:, half:] ^= low_mask << r
+        valid = _rows_below(base, p.lo, r, half, n)
+        upper = _rows_below(starts[:, half], p.lo, r, half, n)
+        valid = valid + torch.where(valid == size // 2, upper, 0)
+    else:
+        valid = _rows_below(base, p.lo, r, 1 << w, n)
+    pos = starts[:, :, None] + torch.arange(1 << r, device=device)
+    return pos.reshape(-1, size), valid
+
+
+def _local_stages(p: Pass, t: int) -> list[tuple[int, int]]:
+    """The stages of pass p on a block's local bits, as (partner mask, its
+    top bit): a mirror pairs s with s ^ (2^L - 1), a half-cleaner s with
+    s ^ 2^b."""
+    if p.kind == "sort":
+        out = []
+        for level in range(1, p.level + 1):
+            out.append(((1 << level) - 1, level - 1))
+            out += [(1 << b, b) for b in range(level - 2, -1, -1)]
+        return out
+    if p.kind == "tile":
+        return [(1 << b, b) for b in range(t - 1, -1, -1)]
+    r = t - (p.hi - p.lo + 1)
+    out = []
+    top = t - 1
+    if p.hi == p.level - 1:
+        out.append(((1 << t) - 1, t - 1))
+        top -= 1
+    return out + [(1 << b, b) for b in range(top, r - 1, -1)]
+
+
+def _lex_gt(x, y, num_keys: int):
+    """Lexicographic x > y on the first num_keys planes of [C, ...]."""
+    gt = torch.zeros_like(x[0], dtype=torch.bool)
+    for q in reversed(range(num_keys)):
+        gt = (x[q] > y[q]) | ((x[q] == y[q]) & gt)
+    return gt
+
+
+def plain_bitonic_sort(operands, num_keys: int = 1, tile: int | None = None,
+                       group_stages: int | None = None) -> tuple:
+    """The kernel's network in torch ops, on any device: the passes of
+    `schedule(n, C, tile, group_stages)` one by one, each as the kernel
+    runs it. A pass gathers every block's elements in local order (the
+    mirrored frame of a group pass included), runs its stages on the
+    block's local indices (the smaller element to the lower index, a
+    comparator skipped when its upper index is past the block's valid
+    count) and writes the elements back. Equals `bitonic_sort` element for
+    element on every plane; not stable."""
+    operands = tuple(operands)
+    c = len(operands)
+    if not 1 <= num_keys <= c:
+        raise ValueError(f"num_keys must be in 1..{c}, got {num_keys}")
+    n = operands[0].shape[0]
+    planes = [op.clone() for op in operands]
+    passes = schedule(n, c, tile, group_stages)
+    if not passes:
+        return tuple(planes)
+    device = operands[0].device
+    full = 1 << (n - 1).bit_length()
+    t = passes[0].level
+    local = torch.arange(1 << t, device=device)
+    for p in passes:
+        pos, valid = _frame(p, t, full, n, device)
+        keep = local < valid[:, None]
+        at = pos.clamp(max=n - 1)
+        block = torch.stack([op[at] for op in planes])
+        for mask, top in _local_stages(p, t):
+            lower = local[(local >> top) & 1 == 0]
+            upper = lower ^ mask
+            x = block[:, :, lower]
+            y = block[:, :, upper]
+            swap = (upper < valid[:, None]) & _lex_gt(x, y, num_keys)
+            block[:, :, lower] = torch.where(swap, y, x)
+            block[:, :, upper] = torch.where(swap, x, y)
+        for q, op in enumerate(planes):
+            op[pos[keep]] = block[q][keep]
+    return tuple(planes)
+
+
 def build(name: str, source: str) -> ctypes.CDLL:
     """Build the kernel library `name` from `source` and load it."""
     path = _build.build_library(
         name, [source], [_build.nvcc(), *_build.NVCC_FLAGS])
     lib = ctypes.CDLL(path)
     lib.ss_bitonic_sort_i32.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     lib.ss_bitonic_sort_i32.restype = ctypes.c_int
+    lib.ss_bitonic_schedule.argtypes = [
+        ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int]
+    lib.ss_bitonic_schedule.restype = ctypes.c_int
     lib.ss_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ss_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -65,15 +249,35 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
-def launch_sort(lib: ctypes.CDLL, planes: tuple, num_keys: int) -> None:
-    """Launch `lib`'s sort on contiguous int32 CUDA planes of one length,
-    in place, on the current stream. Raises if the launch failed."""
-    ptrs = (ctypes.c_void_p * len(planes))(*(p.data_ptr() for p in planes))
-    device = planes[0].device
+def kernel_schedule(n: int, num_planes: int, lib=None) -> list[Pass]:
+    """The passes the kernel library runs for one sort (its
+    `ss_bitonic_schedule`), to hold against `schedule`."""
+    lib = lib or load_library()
+    cap = 256
+    buf = (ctypes.c_int * (4 * cap))()
+    count = lib.ss_bitonic_schedule(n, num_planes, buf, cap)
+    if not 0 <= count <= cap:
+        raise RuntimeError(f"ss_bitonic_schedule returned {count}")
+    return [Pass(_KINDS[buf[4 * i]], *buf[4 * i + 1:4 * i + 4])
+            for i in range(count)]
+
+
+def launch_sort(lib: ctypes.CDLL, planes_in: tuple, planes_out: tuple,
+                num_keys: int) -> None:
+    """Launch `lib`'s sort of contiguous int32 CUDA planes of one length
+    from `planes_in` into `planes_out` (which may be the same tensors), on
+    the current stream. Raises if a launch failed."""
+    def pointers(planes):
+        return (ctypes.c_void_p * len(planes))(
+            *(p.data_ptr() for p in planes))
+
+    device = planes_out[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.ss_bitonic_sort_i32(ptrs, len(planes), planes[0].shape[0],
-                                     num_keys, stream)
+        rc = lib.ss_bitonic_sort_i32(pointers(planes_in),
+                                     pointers(planes_out), len(planes_out),
+                                     planes_out[0].shape[0], num_keys,
+                                     stream)
     if rc != 0:
         raise RuntimeError(
             f"bitonic kernel launch failed: "
@@ -98,10 +302,14 @@ def plain_sort(operands, num_keys: int = 1) -> tuple:
 
 def bitonic_sort(operands, num_keys: int = 1) -> tuple:
     """Sort 1-D int32 CUDA planes with the Hopper bitonic kernel. Not
-    stable.
+    stable; equals `plain_bitonic_sort` element for element.
 
-    Returns new tensors; the inputs are left as they are. Each output is
-    one copy of its input, sorted in place by the kernel.
+    Returns new tensors; the inputs are left as they are. The kernel's
+    first pass reads the inputs and writes the outputs, so no copy is made
+    first. `len(schedule(n, C))` passes over the planes: at n = 2^28 on an
+    H100, 85.5 / 180.2 / 223.3 ms at C = 2 / 4 / 5, slower than the chained
+    `torch.sort` (33.7 / 120.6 / 164.1 ms) and than `device_sort`'s radix
+    sort; the same at 2^24 (PERF.md).
     """
     global launches
     operands = tuple(operands)
@@ -121,11 +329,13 @@ def bitonic_sort(operands, num_keys: int = 1) -> tuple:
             raise ValueError("bitonic_sort planes must be 1-D of one length")
     if n >= 1 << 31:
         raise ValueError("bitonic_sort takes fewer than 2^31 elements")
-    outs = tuple(op.clone(memory_format=torch.contiguous_format)
-                 for op in operands)
+    src = tuple(op.contiguous() for op in operands)
+    outs = tuple(torch.empty_like(op) for op in src)
     if n < 2:
+        for o, s in zip(outs, src):
+            o.copy_(s)
         return outs
-    launch_sort(load_library(), outs, num_keys)
+    launch_sort(load_library(), src, outs, num_keys)
     launches += 1
     return outs
 

@@ -4,8 +4,11 @@ bitonic kernel.
 The plain version is held against `jax.lax.sort` exactly (both are stable).
 The Hopper bitonic kernel (`bitonic_sort`, which `device_sort` no longer
 routes through: the radix sort of tests/test_torch_radix_sort.py took its
-place) is unstable, so against the plain version its keys must match
-exactly and each payload plane as a multiset inside every tied key block.
+place) is unstable, so against the plain sort its keys must match exactly
+and each payload plane as a multiset inside every tied key block; against
+its own plain version `plain_bitonic_sort` (the same network, pass for
+pass) every plane must match exactly. tests/test_torch_bitonic_schedule.py
+holds the schedule and `plain_bitonic_sort` on the CPU.
 Tests that launch a kernel are marked `cuda` and skip without a card; on a
 machine with one, run them with
 `python -m pytest --noconftest -m cuda tests/test_torch_bitonic.py`
@@ -152,19 +155,46 @@ def test_int32_max_keys_lose_nothing_kernel(cuda, kernel, n):
         assert torch.equal(got[1].cpu(), want[1])
 
 
+def _edge_n(n, c):
+    """n of the edge cases: a number, or "T-1", "T", "T+1" around the
+    kernel's tile for c planes."""
+    if isinstance(n, int):
+        return n
+    return (1 << bitonic.tile_log(c)) + {"T-1": -1, "T": 0, "T+1": 1}[n]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 3, 4096, 4097, 100_003, 1 << 18])
+@pytest.mark.parametrize("n", [2, 3, "T-1", "T", "T+1", 100_003, 1 << 18])
 @pytest.mark.parametrize("c,num_keys", [(1, 1), (2, 1), (2, 2), (4, 3),
                                         (5, 4), (5, 5), (6, 6)])
 def test_kernel_matches_plain(cuda, c, num_keys, n):
+    """Keys equal the plain sort's, payloads per tied block; every plane
+    equals `plain_bitonic_sort`'s element for element (the same network)."""
+    n = _edge_n(n, c)
     rng = np.random.default_rng(n + 7 * c + num_keys)
     arrays = _planes(rng, n, c, num_keys, lo=-(1 << 31), hi=(1 << 31) - 1)
     if n > 4:  # dense ties as well as extremes
         arrays[0][: n // 2] = rng.integers(-2, 2, n // 2, dtype=np.int32)
-    got = bitonic.bitonic_sort([torch.from_numpy(a).to(cuda) for a in arrays],
-                               num_keys)
+    ops = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = bitonic.launches
+    got = bitonic.bitonic_sort(ops, num_keys)
+    torch.cuda.synchronize()
+    assert bitonic.launches == before + 1
     want = bitonic.plain_sort([torch.from_numpy(a) for a in arrays], num_keys)
     _assert_sorted_like([g.cpu() for g in got], want, num_keys)
+    same = bitonic.plain_bitonic_sort(ops, num_keys)
+    for g, w in zip(got, same):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", range(1, 7))
+def test_kernel_runs_the_schedule(cuda, c):
+    """The library's own pass list equals `schedule`'s, from one element
+    to 2^31."""
+    for n in [0, 1, 2, 3, 255, 256, 257, 4095, 8193, 100_003, 1 << 20,
+              (1 << 24) + 12345, 1 << 28, 1 << 31]:
+        assert bitonic.kernel_schedule(n, c) == bitonic.schedule(n, c)
 
 
 @pytest.mark.cuda
@@ -188,8 +218,10 @@ def test_kernel_leaves_inputs_and_rejects_other_dtypes(cuda, sort):
         sort((k.to(torch.uint8), v), 1)
 
 
-@pytest.mark.parametrize("name", ["device stages 2", "device stages 1",
-                                  "tile stages 1", "swizzle"])
+@pytest.mark.parametrize("name", ["tile 4096", "group stages S-1",
+                                  "no mirror fusion", "no swizzle",
+                                  "two stages a round", "four stages a round",
+                                  "key count at run time"])
 def test_sort_variants_each_change_the_source_once(name):
     """The design sweep patches the kernel's source by text; each patch
     must still find its one place in it."""
