@@ -10,10 +10,11 @@ It drives the port's main path once at the benchmark's size and fails
 present. Phases, each printed with its result and time:
 
   0. versions, the card's name and power limit;
-  1. build the five kernel libraries from the sources in the checkout:
+  1. build the six kernel libraries from the sources in the checkout:
      the radix sort behind `device_sort`, the bitonic sort, the
-     radix-partition kernels, the steps between the sorts and the global
-     build's merge-split (one nvcc per source, all started together);
+     radix-partition kernels, the steps between the sorts, the global
+     build's merge-split and its routing kernels (one nvcc per source, all
+     started together);
   2. both sort kernels against the plain sort at 2^24 and 2^24 + 12345,
      tolerance 0: the radix sort, which is stable, element for element on
      every plane (heavy ties under a random payload, INT32_MIN/MAX keys,
@@ -90,10 +91,13 @@ present. Phases, each printed with its result and time:
      `build_global(text, make_mesh(devices=[cuda] * 4))` on phase 3's text,
      its SA equal to phase 3's element for element, its sharded `verify()`
      passing and rejecting the state with one rank corrupted; over the
-     first build the merge-split kernel's launches (`ops/merge.py`) and
-     the sharded head ranking's (`ops/steps.py:shard_head_ranks`) must be
-     > 0, and the radix sort's are printed beside the count of the route
-     before them; with the plain sort's calls (none), host syncs,
+     first build the merge-split kernel's launches (`ops/merge.py`), the
+     sharded head ranking's (`ops/steps.py:shard_head_ranks`) and those of
+     the four routing and placement kernels (`ops/route.py`:
+     `route_partition`, `place_received`; `ops/steps.py`:
+     `shard_pack_keys`, `shard_shift_planes`) must be > 0, and the radix
+     sort's are printed beside the counts of the routes before them; with
+     the plain sort's calls (none), host syncs,
      peak memory, rounds, the bytes the collectives moved against the comm
      model, and the wall of two warm builds; phase 5's LCS needles in both
      text modes equal to the flat index's answers, `sa_search_batch` and
@@ -112,9 +116,9 @@ present. Phases, each printed with its result and time:
      to a temporary `.npy`; each process holds its SA shards against the
      matching slice of it element for element, runs the sharded `verify()`
      (and its catch of a corrupted rank), times a cold and a warm build
-     with its radix sort, merge-split and sharded head-ranks launches > 0
-     (the radix sort's printed beside the route before) and its plain
-     sort calls 0, and
+     with its radix sort, merge-split, sharded head-ranks and routing and
+     placement launches > 0 (the radix sort's printed beside the routes
+     before) and its plain sort calls 0, and
      prints its wall, the bytes that crossed processes, the transport's
      seconds, the bytes per shard against the comm model and its peak
      memory. The processes' exact searches and single-byte counts must
@@ -147,7 +151,21 @@ present. Phases, each printed with its result and time:
      beside its plain chain, `torch.cummax` of the scan and its bound,
      and on a shard wholly inside one group (the longest look-back), then
      its edge cases: n around its tile, with and without a predecessor,
-     int32 and int64.
+     int32 and int64;
+ 17. the global build's four routing and placement kernels against their
+     plain versions, tolerance 0, on the operands of phase 13's build
+     (shard 1 of four, L = 2^26, and the last shard where its edge
+     differs): `shard_pack_keys` of the initial operands, with and without
+     the next shard's bytes; `route_partition` of the initial
+     redistribute (gidx and head-slot ranks, by window of the receiver's
+     slots) and of the first round's `rank_interval_sort` (four int32
+     and four int64 planes); `place_received` of what the redistribute
+     delivered; `shard_shift_planes` of the first round; each timed beside
+     its plain version, the chain it replaced (the routing sort, rank and
+     scatters) and its bytes bound; then the edge cases of
+     tests/test_torch_route.py: n around each tile, P from 1 to 32,
+     destinations at and past cap, clamped and out-of-range sources,
+     int32 and int64, windows, h at and past L and n_pad.
 Phases 9, 12 and 13 print the seconds of each command or step.
 Phases 7 to 10 each zero the sort kernels' launch counts first and need
 the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 to 14
@@ -193,9 +211,16 @@ ENGINES = "doubling,dc3,bstar"
 # the step kernels of the flat build (phase 3)
 FLAT_STEPS = ("pack_keys", "shift_planes", "head_ranks")
 # radix sort launches of the global build at 2^28 on four shards, and of
-# one process of two, before merge_split took the merges (PERF.md §6)
+# one process of two, before merge_split took the merges (PERF.md §6),
+# and before the routing kernels took the routing sorts
 EARLIER_GLOBAL_RADIX = 32
 EARLIER_PROCESS_RADIX = 16
+UNROUTED_GLOBAL_RADIX = 20
+UNROUTED_PROCESS_RADIX = 10
+# the global build's routing and placement kernels: (name, module)
+ROUTE_KERNELS = (("route_partition", "route"), ("place_received", "route"),
+                 ("shard_pack_keys", "steps"),
+                 ("shard_shift_planes", "steps"))
 
 
 class SmokeFailure(Exception):
@@ -753,7 +778,8 @@ def phase1_build_kernels() -> None:
     """Build and load the kernel libraries, one nvcc each, side by
     side."""
     from concurrent.futures import ThreadPoolExecutor
-    from stringsearch_torch.ops import bitonic, merge, radix, radix_sort, steps
+    from stringsearch_torch.ops import (bitonic, merge, radix, radix_sort,
+                                        route, steps)
 
     def timed(load):
         t0 = time.perf_counter()
@@ -763,7 +789,8 @@ def phase1_build_kernels() -> None:
     libraries = (("the radix sort", radix_sort), ("the bitonic sort", bitonic),
                  ("the radix-partition kernels", radix),
                  ("the step kernels", steps),
-                 ("the merge-split kernel", merge))
+                 ("the merge-split kernel", merge),
+                 ("the routing kernels", route))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         times = [pool.submit(timed, module.load_library)
@@ -1513,6 +1540,20 @@ def phase12_wide(text_np, sa_host, card: str) -> dict:
     return report
 
 
+def route_counts(zero: bool = False) -> dict:
+    """The launches of the global build's routing and placement kernels,
+    by name; zeroes them first where `zero`."""
+    from stringsearch_torch.ops import route, steps
+
+    counts = {}
+    for name, module in ROUTE_KERNELS:
+        table = (route if module == "route" else steps).launches
+        if zero:
+            table[name] = 0
+        counts[name] = table[name]
+    return counts
+
+
 def phase13_global(text_np, sa_host, lcs_needles, full_lens,
                    card: str) -> dict:
     """The exact global SA on four shards of the one card, and the rest of
@@ -1555,6 +1596,7 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     built = []
     merge.launches = 0
     step_ops.launches["shard_head_ranks"] = 0
+    route_counts(zero=True)
     with SortLaunches("the global build") as count, PlainSortCalls() as plain:
         t0 = time.perf_counter()
         sync_sites = _syncs(lambda: built.append(build_global(text, mesh)))
@@ -1563,6 +1605,7 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     syncs = len(sync_sites)
     merges = merge.launches
     heads = step_ops.launches["shard_head_ranks"]
+    routed = route_counts()
     g = built.pop()
     peak = torch.cuda.max_memory_allocated()
     launches = count.radix
@@ -1573,6 +1616,8 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
                             f"{plain.calls} times")
     check(merges > 0, "the global build launched no merge_split")
     check(heads > 0, "the global build launched no shard_head_ranks")
+    for name, launched in routed.items():
+        check(launched > 0, f"the global build launched no {name}")
     check(all(s.device == cuda for s in g._sa_sharded + g.rank),
           "a shard of the global build left the card")
     step("the first build")
@@ -1601,8 +1646,10 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     expected = executed_bytes(g)
     say(f"phase 13: global build n=2^{LOG2N} on {shards} shards of one card: "
         f"{first_s:.4f} s, radix sort launches {launches} (the route "
-        f"before merge_split: {EARLIER_GLOBAL_RADIX}), merge_split launches "
-        f"{merges}, shard_head_ranks launches {heads}, plain sort "
+        f"before merge_split: {EARLIER_GLOBAL_RADIX}; before the routing "
+        f"kernels: {UNROUTED_GLOBAL_RADIX}), merge_split launches "
+        f"{merges}, shard_head_ranks launches {heads}, routing and "
+        f"placement launches {routed}, plain sort "
         f"calls {plain.calls}, host syncs {syncs} "
         f"{dict(sorted(Counter(sync_sites).items()))}, peak CUDA memory "
         f"{peak} B of which {held} B held before, rounds_run {g.rounds_run} "
@@ -1754,6 +1801,7 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     return {"n": n, "shards": shards, "first_s": first_s,
             "warm_walls_s": walls, "launches": launches,
             "merge_launches": merges, "head_ranks_launches": heads,
+            "route_launches": routed,
             "plain_sort_calls": plain.calls, "host_syncs": syncs,
             "peak_bytes": peak, "held_bytes": held,
             "rounds_run": report.rounds, "comm_bytes": report.total_bytes,
@@ -1790,6 +1838,9 @@ def phase14_multihost(text_np, sa_host, card: str) -> dict:
               f"phase 14: process {r['pid']} launched "
               f"{r['merge_launches']} merge_split and "
               f"{r['head_ranks_launches']} shard_head_ranks kernels")
+        check(all(v > 0 for v in r["route_launches"].values()),
+              f"phase 14: process {r['pid']} launched the routing and "
+              f"placement kernels {r['route_launches']} times")
         if not r["fallbacks"] and not r["compact_fallbacks"]:
             check(max(r["bulk_bytes_per_shard"]) == r["expected_bytes"],
                   "phase 14: the collectives moved other bytes than the "
@@ -1798,9 +1849,11 @@ def phase14_multihost(text_np, sa_host, card: str) -> dict:
             f"cold {r['walls_s'][0]:.4f} s, warm {r['walls_s'][1]:.4f} s; "
             f"crossed {r['crossed']} B, transport {r['transport_s']:.4f} s; "
             f"radix sort launches {r['radix_launches']} (the route before "
-            f"merge_split: {EARLIER_PROCESS_RADIX}), merge_split launches "
+            f"merge_split: {EARLIER_PROCESS_RADIX}; before the routing "
+            f"kernels: {UNROUTED_PROCESS_RADIX}), merge_split launches "
             f"{r['merge_launches']}, shard_head_ranks launches "
-            f"{r['head_ranks_launches']}, peak CUDA memory "
+            f"{r['head_ranks_launches']}, routing and placement launches "
+            f"{r['route_launches']}, peak CUDA memory "
             f"{r['peak_bytes']} B; rounds_run {r['rounds_run']} (ran "
             f"{r['rounds_executed']}); verify {r['verify_s']:.4f} s [{card}]")
     first = reports[0]
@@ -1827,7 +1880,8 @@ def phase14_multihost(text_np, sa_host, card: str) -> dict:
     say("phase 14: the NCCL route was not run: one card, and NCCL refuses "
         "two ranks on one device (gloo staged through the host instead)")
     keep = ("parts", "walls_s", "crossed", "transport_s", "radix_launches",
-            "merge_launches", "head_ranks_launches", "plain_sort_calls", "peak_bytes", "bulk_bytes_per_shard",
+            "merge_launches", "head_ranks_launches", "route_launches",
+            "plain_sort_calls", "peak_bytes", "bulk_bytes_per_shard",
             "expected_bytes", "rounds_run", "rounds_executed",
             "compact_rounds_run", "fallbacks", "compact_fallbacks",
             "verify_s")
@@ -2225,10 +2279,8 @@ def phase16_merge(text_np, card: str) -> dict:
     rank = global_sa._initial_shard_ranks(h, i32,
                                           list(text.view(shards, length)))[0]
     del text
-    shifts = [global_sa._shifted_ranks(rank, k * h, i32)
-              for k in range(1, fan)]
-    gidx = [global_sa._global_iota(me, length, i32, "cuda")
-            for me in range(shards)]
+    shifts, gidx = global_sa._shifted_ranks(
+        rank, [k * h for k in range(1, fan)], i32)
     planes = rank_interval_sort((rank, *shifts, gidx), num_keys=fan + 1)[:fan]
     del rank, shifts, gidx
     torch.cuda.empty_cache()
@@ -2267,6 +2319,270 @@ def phase16_merge(text_np, card: str) -> dict:
         reports[kernel]["edge_cases"] = cases
         reports[kernel]["edge_max_abs_err"] = err
     say(f"phase 16: edge cases in {time.perf_counter() - t0:.2f} s")
+    return reports
+
+
+def _route_edge_cases(gen) -> dict:
+    """The edge cases of tests/test_torch_route.py, each kernel against its
+    plain version: {kernel: (cases, max_abs_err)}."""
+    import torch
+    from stringsearch_torch.ops import route, steps
+    from stringsearch_torch.parallel.distsort import redistribute_cap
+
+    done = {name: [0, 0] for name, _ in ROUTE_KERNELS}
+    i32, i64 = torch.int32, torch.int64
+
+    def held(kernel, got, want):
+        done[kernel][0] += 1
+        done[kernel][1] = max(done[kernel][1], _exact_err(got, want))
+
+    def randint(lo, hi, n, dtype):
+        return torch.randint(lo, hi, (n,), generator=gen,
+                             dtype=torch.int64).to(dtype).to("cuda")
+
+    tile = route.ROUTE_TILE
+    for n in (0, 1, 2, 33, tile - 1, tile, tile + 1, 8 * tile + 5,
+              (1 << 20) + 12345):
+        for p in (1, 2, 3, 4, 8, 32):
+            length = max(n, 1)
+            cap = redistribute_cap(p, length)
+            for dtype in (i32, i64):
+                payload = (randint(-2**31, 2**31, n, i32),
+                           randint(-2**62, 2**62, n, i64))
+                fills = (-1, 2**31 - 1, 2**63 - 1)
+                dest = randint(0, p, n, i64)
+                heavy = dest.clone()
+                heavy[:min(cap + 1, n)] = 0  # destination 0 past its cap
+                for src, clamp in (
+                        (dest * length + randint(0, length, n, i64), False),
+                        (heavy * length, False),
+                        (randint(-length, (p + 1) * length, n, i64), True),
+                        (randint(-length, (p + 1) * length, n, i64), False)):
+                    src = src.to(dtype)
+                    planes = (src, *payload)
+                    for windows in {1, route.receiver_windows(p, length)}:
+                        got = route.route_partition(src, length, p, planes,
+                                                    fills, cap, clamp,
+                                                    windows)
+                        want = route.plain_route_partition(
+                            src, length, p, planes, fills, cap, clamp,
+                            windows)
+                        held("route_partition", [*got[0], got[1]],
+                             [*want[0], want[1]])
+    for p in (2, 4, 8):
+        for length in (1, 1000, route.PLACE_TILE + 3, (1 << 20) + 7):
+            cap = redistribute_cap(p, length)
+            for dtype in (i32, i64):
+                perm = torch.randperm(p * length, generator=gen)
+                mine = perm[perm // length == p - 1]
+                recv_g = torch.full((p, cap), -1, dtype=torch.int64)
+                for row, part in enumerate(torch.tensor_split(mine, p)):
+                    recv_g[row, :part.numel()] = part
+                recv_g = recv_g.to(dtype).to("cuda")
+                recvs = (randint(-2**31, 2**31, p * cap, i32).view(p, cap),
+                         randint(-2**62, 2**62, p * cap, i64).view(p, cap))
+                held("place_received",
+                     route.place_received(recv_g, recvs, length),
+                     route.plain_place_received(recv_g, recvs, length))
+    for length in (4, 5, 1023, 1024, 1025, 4099, (1 << 20) + 13):
+        chunk = randint(0, 256, length, torch.uint8)
+        for depth in (4, 12, 16, 24):
+            if depth > length:
+                continue
+            for halo in (None, randint(0, 256, depth, torch.uint8),
+                         torch.full((depth,), 255, dtype=torch.uint8,
+                                    device="cuda")):
+                for idx in (i32, i64):
+                    held("shard_pack_keys",
+                         steps.shard_pack_keys(chunk, halo, depth,
+                                               3 * length, idx),
+                         steps.plain_shard_pack_keys(chunk, halo, depth,
+                                                     3 * length, idx))
+    for p in (2, 4, 8):
+        for length in (1, 5, steps.SHIFT_TILE - 1, steps.SHIFT_TILE + 1,
+                       (1 << 18) + 3):
+            n_pad = p * length
+            hs = sorted({min(h, n_pad) for h in (
+                1, length // 3, length - 1, length, length + 5, 2 * length,
+                n_pad - 1, n_pad)})
+            for idx in (i32, i64):
+                rank = [randint(0, n_pad, length, idx) for _ in range(p)]
+                for me in range(p):
+                    windows = []
+                    for h in hs + hs[:1] * 9:  # past one launch's planes
+                        d, r = divmod(h, length)
+                        windows.append((
+                            h, rank[me + d] if me + d < p else None,
+                            rank[me + d + 1] if r and me + d + 1 < p
+                            else None))
+                    held("shard_shift_planes",
+                         steps.shard_shift_planes(windows, length,
+                                                  me * length, n_pad, idx,
+                                                  rank[me].device),
+                         steps.plain_shard_shift_planes(
+                             windows, length, me * length, n_pad, idx,
+                             rank[me].device))
+    torch.cuda.synchronize()
+    return {k: tuple(v) for k, v in done.items()}
+
+
+def phase17_route(text_np, card: str) -> dict:
+    """The global build's four routing and placement kernels against their
+    plain versions on the operands of phase 13's build (shard 1 of four,
+    L = 2^26, and the last shard where its edge differs), and on their
+    edge cases, with times. Returns one report per kernel."""
+    import torch
+    from stringsearch_torch.ops import route, steps
+    from stringsearch_torch.ops.bitonic import device_sort, plain_sort
+    from stringsearch_torch.parallel import collectives as coll
+    from stringsearch_torch.parallel import global_sa
+    from stringsearch_torch.parallel.distsort import (redistribute_cap,
+                                                      sharded_sort)
+
+    n = len(text_np)
+    p = 4
+    length = n // p
+    depth = global_sa.INITIAL_DEPTH
+    nk = depth // 4
+    fan = 3
+    i32 = torch.int32
+    cap = redistribute_cap(p, length)
+    text = torch.from_numpy(text_np.copy()).to("cuda")
+    chunks = list(text.view(p, length))
+    reports = {name: {"shapes": []} for name, _ in ROUTE_KERNELS}
+
+    def held(kernel, shape, got, want, fn, plain, nbytes, replaced=None):
+        """Kernel against plain, tolerance 0; times of the kernel, the
+        plain version and the chain the kernel replaced (where that is not
+        the plain version itself) beside the bytes bound."""
+        err = _exact_err(got, want)
+        del got, want
+        ms = cuda_ms(fn, 10)
+        plain_ms = cuda_ms(plain, 2)
+        replaced_ms = round(cuda_ms(replaced, 2) if replaced else plain_ms,
+                            4)
+        bounds = bound(nbytes, 0)
+        say(f"phase 17: {kernel} {shape}: max_abs_err {err} (tolerance 0); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the chain it "
+            f"replaced {replaced_ms} ms; bound {bounds['bound_ms']} ms "
+            f"({nbytes} B), share {bounds['bound_ms'] / ms:.3f} [{card}]")
+        check(err == 0, f"{kernel} {shape} disagrees with its plain version")
+        reports[kernel]["shapes"].append({
+            "shape": shape, "max_abs_err": err, "ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 4), "library_ms": None,
+            "replaced_ms": replaced_ms, **bounds})
+
+    # the initial operands of shards 1 and 3 (the last: no halo)
+    for me in (1, p - 1):
+        halo = chunks[me + 1][:depth] if me < p - 1 else None
+        args = (chunks[me], halo, depth, me * length, i32)
+        held("shard_pack_keys", f"shard {me} of 4, L=2^{LOG2N - 2}, depth "
+             f"{depth}{'' if halo is not None else ', no halo'}",
+             steps.shard_pack_keys(*args), steps.plain_shard_pack_keys(*args),
+             lambda: steps.shard_pack_keys(*args),
+             lambda: steps.plain_shard_pack_keys(*args),
+             length + depth + (4 * nk + 4) * length)
+
+    # the initial sort and head ranking of phase 13's build
+    out = sharded_sort(global_sa._initial_operands(depth, i32, chunks), nk)
+    gidx_s = out[-1]
+    rank_s, _ = global_sa._sorted_head_ranks(list(out[:nk]), 0, i32, True)
+    del out
+    torch.cuda.empty_cache()
+
+    # its redistribute: shard 1's send buffers, by window of the
+    # receiver's slots; the chain replaced sorted by (dest, gidx)
+    windows = route.receiver_windows(p, length)
+
+    def redistribute(me, sort=None, num_keys=1, windows=windows):
+        args = (gidx_s[me], length, p, (gidx_s[me], rank_s[me]), (-1, 0),
+                cap, False, windows)
+        if sort is None:
+            return route.route_partition(*args)
+        return route.plain_route_partition(*args, sort=sort,
+                                           num_keys=num_keys)
+
+    got, want = redistribute(1), redistribute(1, plain_sort)
+    held("route_partition", f"the initial redistribute, shard 1 of 4, "
+         f"L=2^{LOG2N - 2}, 2 int32 operands, cap {cap}, {windows} windows",
+         [*got[0], got[1]], [*want[0], want[1]], lambda: redistribute(1),
+         lambda: redistribute(1, plain_sort), length * 8 + 2 * p * cap * 4,
+         replaced=lambda: redistribute(1, device_sort, 2, 1))
+    del got, want
+    # what shard 1 receives, and its placement
+    sends = [redistribute(me)[0] for me in range(p)]
+    recv_g = coll.all_to_all([s[0] for s in sends])
+    recv = coll.all_to_all([s[1] for s in sends])
+    del sends
+    held("place_received", f"the initial redistribute, shard 1 of 4, "
+         f"L=2^{LOG2N - 2}, one int32 operand, [4, {cap}] received, "
+         f"{windows} windows",
+         route.place_received(recv_g[1], (recv[1],), length),
+         route.plain_place_received(recv_g[1], (recv[1],), length),
+         lambda: route.place_received(recv_g[1], (recv[1],), length),
+         lambda: route.plain_place_received(recv_g[1], (recv[1],), length),
+         p * cap * 8 + length * 4)
+    rank = [route.place_received(recv_g[me], (recv[me],), length)[0]
+            for me in range(p)]
+    del recv_g, recv, gidx_s, rank_s
+    torch.cuda.empty_cache()
+
+    # the first round's shifted planes (h = depth, fan 3): shards 1 and 3
+    hs = [k * depth for k in range(1, fan)]
+    for me in (1, p - 1):
+        windows = [(h, rank[me], rank[me + 1] if me + 1 < p else None)
+                   for h in hs]
+        args = (windows, length, me * length, p * length, i32,
+                rank[me].device)
+        held("shard_shift_planes", f"the first round, shard {me} of 4, "
+             f"L=2^{LOG2N - 2}, h {hs}",
+             steps.shard_shift_planes(*args),
+             steps.plain_shard_shift_planes(*args),
+             lambda: steps.shard_shift_planes(*args),
+             lambda: steps.plain_shard_shift_planes(*args),
+             (2 * len(hs) + 1) * 4 * length)
+    # its rank_interval_sort route: shard 1's four operands, int32 and
+    # int64
+    shifted = steps.shard_shift_planes(
+        [(h, rank[1], rank[2]) for h in hs], length, length, p * length, i32,
+        rank[1].device)
+    operands = (rank[1], *shifted)
+    del rank
+    torch.cuda.empty_cache()
+    for idx in (i32, torch.int64):
+        ops = tuple(t.to(idx) for t in operands)
+        sent = torch.iinfo(idx).max
+
+        def interval(sort=None, ops=ops, sent=sent):
+            args = (ops[0], length, p, ops, (sent, 0, 0, 0), cap, True)
+            if sort is None:
+                return route.route_partition(*args)
+            return route.plain_route_partition(*args, sort=sort)
+
+        got, want = interval(), interval(plain_sort)
+        width = ops[0].element_size()
+        held("route_partition", f"the first round's rank_interval_sort, "
+             f"shard 1 of 4, L=2^{LOG2N - 2}, 4 "
+             f"{str(idx).split('.')[-1]} operands, cap {cap}",
+             [*got[0], got[1]], [*want[0], want[1]], interval,
+             lambda: interval(plain_sort),
+             length * 4 * width + p * cap * 4 * width,
+             replaced=lambda: interval(device_sort))
+        del got, want, ops
+        torch.cuda.empty_cache()
+    del operands, shifted, text, chunks
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(17)
+    for kernel, (cases, err) in _route_edge_cases(gen).items():
+        say(f"phase 17: {kernel} on {cases} edge cases: max_abs_err {err} "
+            f"(tolerance 0)")
+        check(err == 0, f"{kernel} disagrees with its plain version on an "
+                        f"edge case")
+        reports[kernel]["edge_cases"] = cases
+        reports[kernel]["edge_max_abs_err"] = err
+    say(f"phase 17: edge cases in {time.perf_counter() - t0:.2f} s")
     return reports
 
 
@@ -2350,6 +2666,9 @@ def main() -> int:
         t0 = time.perf_counter()
         merge_report = phase16_merge(text_np, card)
         say(f"phase 16: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        route_report = phase17_route(text_np, card)
+        say(f"phase 17: passed in {time.perf_counter() - t0:.2f} s")
         del text_np
     except SmokeFailure as e:
         say(f"FAIL: {e}")
@@ -2472,6 +2791,48 @@ def main() -> int:
             "edge_cases": rep["edge_cases"],
         })
 
+    # the global build's routing and placement kernels: launches from
+    # phase 13's first build; headline, the first shape timed
+    sources = {"route": "stringsearch_torch/ops/csrc/route.cu",
+               "steps": "stringsearch_torch/ops/csrc/steps.cu"}
+    replaced = {
+        "route_partition":
+            "the lax.sort by destination, searchsorted rank and send-buffer "
+            "scatters of redistribute_permutation and rank_interval_sort, "
+            "parallel/distsort.py:151-164 and 240-255 of the JAX package",
+        "place_received":
+            "the scatter to gidx % L of redistribute_permutation, "
+            "parallel/distsort.py:167-178 of the JAX package",
+        "shard_pack_keys":
+            "the packing of _initial_shard_ranks, parallel/global_sa.py:"
+            "166-189 of the JAX package",
+        "shard_shift_planes":
+            "_shifted_ranks and the round's _global_iota, parallel/"
+            "global_sa.py:216 and 251 of the JAX package"}
+    route_kernels = []
+    for name, module in ROUTE_KERNELS:
+        rep = route_report[name]
+        head = rep["shapes"][0]
+        route_kernels.append({
+            "name": name if module == "route" else f"steps_{name}",
+            "route": "cuda",
+            "source": sources[module],
+            "replaces": f"no pl.pallas_call: the jnp ops of "
+                        f"{replaced[name]}, which XLA fuses",
+            "launches": global_report["route_launches"][name],
+            "max_abs_err": max([s["max_abs_err"] for s in rep["shapes"]]
+                               + [rep["edge_max_abs_err"]]),
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "replaced_route_ms": head["replaced_ms"],
+            "timed_shape": head["shape"],
+            "shapes": rep["shapes"],
+            "edge_cases": rep["edge_cases"],
+        })
+
     say(json.dumps({"kernels": [
         sort_entry("radix_sort", "stringsearch_torch/ops/csrc/radix_sort.cu",
                    build["launches"], probe_launches=probe_sort_launches,
@@ -2488,7 +2849,7 @@ def main() -> int:
                    edge_cases=sorts["bitonic_sort"]["edge_cases"],
                    passes=sorts["bitonic_sort"]["passes"],
                    sizes=sorts["bitonic_sort"]["sizes"]),
-        *radix_kernels, *step_kernels, *global_kernels]}))
+        *radix_kernels, *step_kernels, *global_kernels, *route_kernels]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -42,6 +42,7 @@ only this harness routes there, never the engines.
     python -m stringsearch_torch.harness.profile_build multihost
     python -m stringsearch_torch.harness.profile_build steps
     python -m stringsearch_torch.harness.profile_build merge
+    python -m stringsearch_torch.harness.profile_build route
     python -m stringsearch_torch.harness.profile_build bitonic
 
 run one part alone; `steps` runs the flat, the partitioned
@@ -53,7 +54,19 @@ route through them (old, new, new, old): the old route merges by a
 `device_sort` of each concatenation and ranks heads with the plain chain
 (`plain_merge_split` and `plain_shard_head_ranks` on the card, which
 only this harness does), the new one runs `merge_split` and
-`shard_head_ranks`. `bitonic` runs the flat build at 2^28 with every sort
+`shard_head_ranks`. `route` runs the same build in the same turns
+against the route before the global build's routing and placement
+kernels: the old route sorts each shard by destination before its
+all_to_all, ranks and scatters into the send buffers, scatters on
+receipt and concatenates the packed and shifted planes
+(`plain_route_partition`, `plain_place_received`,
+`plain_shard_pack_keys` and `plain_shard_shift_planes` on the card,
+which only this harness does), the new one launches `route_partition`,
+`place_received`, `shard_pack_keys` and `shard_shift_planes`; then the
+permutation route of one shard alone (`route_partition`, its kernels by
+name, and `place_received`) at each number of windows a destination.
+`bitonic`
+runs the flat build at 2^28 with every sort
 on the bitonic kernel in turns with the radix sort (radix, bitonic,
 bitonic, radix), the same numbers for each.
 """
@@ -76,7 +89,7 @@ import torch
 import stringsearch_torch as st
 from stringsearch_torch.engines import bstar, dc3, doubling
 from stringsearch_torch.harness.corpus import enwik_like, regression_corpus
-from stringsearch_torch.ops import bitonic, merge, radix_sort, steps
+from stringsearch_torch.ops import bitonic, merge, radix_sort, route, steps
 
 SIZES = (24, 28)
 # the steps between the sorts, as `engines/doubling.py` calls them
@@ -330,6 +343,117 @@ def profile_merge(log2n: int = 28, shards: int = 4) -> None:
         torch.cuda.empty_cache()
 
 
+def _old_route(src, length, p, planes, fills, cap, clamp=False, windows=1):
+    """A shard's send buffers as before `route_partition`: a `device_sort`
+    by destination (by (destination, gidx) for the permutation route,
+    whatever the windows; looked up in `distsort` at the call, so `profile`
+    times it as a sort), the `searchsorted` rank and a scatter an
+    operand."""
+    from stringsearch_torch.parallel import distsort
+
+    return route.plain_route_partition(src, length, p, planes, fills, cap,
+                                       clamp, sort=distsort.device_sort,
+                                       num_keys=1 if clamp else 2)
+
+
+def profile_route(log2n: int = 28, shards: int = 4) -> None:
+    """The global build at 2^log2n on `shards` shards of one card, in
+    turns: the old route (the routing sorts, `searchsorted` ranks and
+    scatters of the two all_to_all routes, the receive scatter, the
+    concatenations of the initial packing and of the shifted ranks: the
+    plain versions of the four kernels, on the card), the new
+    (`route_partition`, `place_received`, `shard_pack_keys`,
+    `shard_shift_planes`), the new, the old. The four kernels' launches of
+    each turn are printed with the rest."""
+    from stringsearch_torch.parallel import distsort, gather, global_sa
+    from stringsearch_torch.parallel.mesh import make_mesh
+
+    n = 1 << log2n
+    text = torch.from_numpy(
+        np.frombuffer(enwik_like(n), dtype=np.uint8).copy()).to("cuda")
+    mesh = make_mesh(devices=[torch.device("cuda")] * shards)
+    names = (("route_partition", distsort, route),
+             ("place_received", distsort, route),
+             ("shard_pack_keys", global_sa, steps),
+             ("shard_shift_planes", global_sa, steps))
+    routes = {
+        "new route": [getattr(module, name) for name, module, _ in names],
+        "old route": [_old_route, route.plain_place_received,
+                      steps.plain_shard_pack_keys,
+                      steps.plain_shard_shift_planes]}
+
+    def take(label):
+        for (name, module, _), fn in zip(names, routes[label]):
+            setattr(module, name, fn)
+
+    for turn, label in enumerate(("old route", "new route", "new route",
+                                  "old route"), 1):
+        take(label)
+        before = {name: owner.launches[name] for name, _, owner in names}
+        try:
+            profile(f"2^{log2n} global build, {shards} shards of one card, "
+                    f"{label} (turn {turn})",
+                    lambda: global_sa.build_global(text, mesh),
+                    modules=(distsort, gather, global_sa), nbytes=n)
+        finally:
+            take("new route")
+        launched = {name: owner.launches[name] - before[name]
+                    for name, _, owner in names}
+        print(f"   routing and placement launches over the turn's six "
+              f"builds: {launched}", flush=True)
+        torch.cuda.empty_cache()
+
+
+def route_windows(log2n: int = 28, shards: int = 4) -> None:
+    """The permutation route of one shard of the global build at 2^log2n
+    on `shards` shards: `route_partition` (its kernels timed by name) and
+    the receiver's `place_received` with each number of windows a
+    destination, on a random permutation."""
+    from stringsearch_torch.parallel import collectives as coll
+    from stringsearch_torch.parallel.distsort import redistribute_cap
+
+    length, p = (1 << log2n) // shards, shards
+    cap = redistribute_cap(p, length)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    gidx = list(torch.randperm(p * length, generator=gen, device="cuda")
+                .to(torch.int32).view(p, length))
+    vals = [torch.randint(0, 1 << 30, (length,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+            for _ in range(p)]
+
+    def ms(fn, reps=10):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    for w in sorted({1, 8, 16, 32, route.receiver_windows(p, length)}):
+        def send(me, w=w):
+            return route.route_partition(gidx[me], length, p,
+                                         (gidx[me], vals[me]), (-1, 0), cap,
+                                         False, w)
+        sends = [send(me)[0] for me in range(p)]
+        recv_g = coll.all_to_all([s[0] for s in sends])
+        recv = coll.all_to_all([s[1] for s in sends])
+        del sends
+        r_ms = ms(lambda: send(1))
+        p_ms = ms(lambda: route.place_received(recv_g[1], (recv[1],),
+                                               length))
+        per = _kernel_sums(lambda: send(1))
+        kernels = {name: round(t, 4) for name, (t, _) in per.items()
+                   if name.startswith("route_")}
+        print(f"2^{log2n} / {p} shards, the permutation route of shard 1, "
+              f"{w} windows a destination: route_partition {r_ms:.4f} ms "
+              f"({kernels}), place_received {p_ms:.4f} ms, both "
+              f"{r_ms + p_ms:.4f} ms", flush=True)
+        del recv_g, recv
+
+
 def profile_multihost(log2n: int = 28, shards: int = 4) -> None:
     """The global build at 2^log2n across processes (process i on card i
     modulo the cards visible): 2 x shards/2 on gloo, which runs on one
@@ -460,6 +584,7 @@ def main() -> None:
     radix_sort.load_library()
     steps.load_library()
     merge.load_library()
+    route.load_library()
     if sys.argv[1:] == ["transforms"]:
         profile_transforms()
         return
@@ -474,6 +599,10 @@ def main() -> None:
         return
     if sys.argv[1:] == ["merge"]:
         profile_merge()
+        return
+    if sys.argv[1:] == ["route"]:
+        profile_route()
+        route_windows()
         return
     if sys.argv[1:] == ["steps"]:
         profile_steps()

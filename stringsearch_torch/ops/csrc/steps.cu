@@ -1,6 +1,6 @@
 // The doubling engine's steps between the sorts, on Hopper (sm_90a).
 //
-// Three kernels, each the fusion of a chain of PyTorch ops that
+// Four kernels, each the fusion of a chain of PyTorch ops that
 // `engines/doubling.py` ran one op, and one pass over device memory, at a
 // time. None replaces a Pallas kernel: the JAX package writes these steps
 // as jnp ops inside its one jitted build (stringsearch_tpu/engines/
@@ -25,12 +25,25 @@
 //       slot 0 is compared with the previous shard's last key tuple, a
 //       slot before the shard's first group start gets -1, and the heads
 //       are offset to global slots.
+//   On one shard of the global build, two of them again:
+//   pack_keys_kernel with a halo (`ss_shard_pack_keys`) replaces the
+//       packing of `_initial_shard_ranks` (stringsearch_tpu/parallel/
+//       global_sa.py:166-189): the bytes past the shard come from the next
+//       shard's first `depth` (zero past the last shard), with no
+//       concatenation into an extended chunk, and the positions are global.
+//   shard_shift_planes_kernel replaces `_shifted_ranks` (l.216), once for
+//       every shift of a round, and the round's global position `arange`:
+//       plane s at i is the window [r, r + L) of the two shards that the
+//       round's ppermutes delivered, or the marker -(global i + 1) where
+//       i + h lies past the padded text.
 //
-// Bound: device-memory bytes, for all three. Each reads its inputs and
+// Bound: device-memory bytes, for all of them. Each reads its inputs and
 // writes its outputs once and does a few integer operations an element:
 //   pack_keys     n text bytes in, (4 * depth/4 + 4 or 8 [+ 4 or 8]) n out;
 //   shift_planes  one rank plane in (its shifts meet in L2), one plane out
 //                 a shift, and the positions;
+//   shard_shift_planes  one window of L elements in a shift (but for the
+//                 markers), one plane out a shift, and the positions;
 //   head_ranks    every key plane in, one rank plane out.
 // What the design does about it:
 //   * One pass each, in place of one op a pass (the eager chain makes a
@@ -170,13 +183,20 @@ __device__ __forceinline__ int64_t local_of(int64_t i, int64_t chunk,
 // planes at key_out + k * stride (stride a multiple of 4, so every plane
 // starts on 16 bytes), the chunk index at chunk_out (none when null) and
 // the position at pos_out, both of type Idx.
+// On one shard of the global build (`shard_pack_keys`) the bytes past n
+// are the halo's (halo_len bytes, the next shard's first; none past them,
+// nor where halo is null), no chunk ends before n + halo_len, and the
+// positions count from pos_offset.
 template <typename Idx>
 __global__ void __launch_bounds__(kPackThreads)
     pack_keys_kernel(const uint8_t* __restrict__ text, int64_t n,
                      int64_t chunk, int keys, int64_t stride,
                      int* __restrict__ key_out, Idx* __restrict__ chunk_out,
-                     Idx* __restrict__ pos_out) {
-  extern __shared__ uint32_t line[];  // text [t0, t0 + 4 * words), 0 past n
+                     Idx* __restrict__ pos_out,
+                     const uint8_t* __restrict__ halo, int64_t halo_len,
+                     int64_t pos_offset) {
+  // text [t0, t0 + 4 * words), then the halo, then 0
+  extern __shared__ uint32_t line[];
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kPackTile;
   const int words = kPackThreads + keys + 1;
   const bool text_aligned = (reinterpret_cast<uintptr_t>(text) & 3) == 0;
@@ -188,7 +208,11 @@ __global__ void __launch_bounds__(kPackThreads)
     } else {
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        if (g + b < n) v |= static_cast<uint32_t>(text[g + b]) << (8 * b);
+        const int64_t at = g + b;
+        const uint32_t byte = at < n                ? text[at]
+                              : at - n < halo_len ? halo[at - n]
+                                                  : 0u;
+        v |= byte << (8 * b);
       }
     }
     line[w] = v;
@@ -211,7 +235,7 @@ __global__ void __launch_bounds__(kPackThreads)
     }
     ends[m] = end;
     cidx[m] = static_cast<Idx>(c);
-    pos[m] = static_cast<Idx>(i0 + m);
+    pos[m] = static_cast<Idx>(pos_offset + i0 + m);
   }
   for (int k = 0; k < keys; ++k) {
     // bytes i0 + 4k .. i0 + 4k + 7; byte b of the pair is (b < 4 ? w0 : w1)
@@ -283,6 +307,63 @@ __global__ void __launch_bounds__(kShiftThreads)
     for (int m = 0; m < kShiftItems; ++m) {
       const int64_t i = t0 + threadIdx.x + m * kShiftThreads;
       if (i < n) pos[i] = static_cast<T>(i);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// shard_shift_planes
+// ---------------------------------------------------------------------------
+
+// The shifted planes of one shard of the global build. Shift s reads the
+// window [r, r + n) of two consecutive shards: head holds its positions
+// [r, n), tail its positions [n, n + r) (either null where it lies past
+// the last shard, read as -1).
+template <typename T>
+struct ShardShiftOut {
+  T* plane[kMaxShifts];
+  const T* head[kMaxShifts];
+  const T* tail[kMaxShifts];
+  int64_t r[kMaxShifts];      // in [0, n)
+  int64_t limit[kMaxShifts];  // local positions below it take the window
+};
+
+// out.plane[s][i] = window s at i for i < limit[s], else the marker
+// -(offset + i + 1); pos[i] = offset + i unless pos is null.
+template <typename T>
+__global__ void __launch_bounds__(kShiftThreads)
+    shard_shift_planes_kernel(int64_t n, int64_t offset, int count,
+                              ShardShiftOut<T> out, T* __restrict__ pos) {
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kShiftTile;
+  // unrolled, so that `out` is read with constant indices (see
+  // shift_planes_kernel)
+#pragma unroll
+  for (int s = 0; s < kMaxShifts; ++s) {
+    if (s >= count) break;
+    const T* __restrict__ head = out.head[s];
+    const T* __restrict__ tail = out.tail[s];
+    const int64_t r = out.r[s];
+    const int64_t limit = out.limit[s];
+    T* __restrict__ dst = out.plane[s];
+#pragma unroll
+    for (int m = 0; m < kShiftItems; ++m) {
+      const int64_t i = t0 + threadIdx.x + m * kShiftThreads;
+      if (i < n) {
+        T v = static_cast<T>(-(offset + i + 1));
+        if (i < limit) {
+          const int64_t j = i + r;
+          const T* from = j < n ? head : tail;
+          v = from == nullptr ? T(-1) : from[j < n ? j : j - n];
+        }
+        dst[i] = v;
+      }
+    }
+  }
+  if (pos != nullptr) {
+#pragma unroll
+    for (int m = 0; m < kShiftItems; ++m) {
+      const int64_t i = t0 + threadIdx.x + m * kShiftThreads;
+      if (i < n) pos[i] = static_cast<T>(offset + i);
     }
   }
 }
@@ -459,6 +540,28 @@ inline int blocks_of(int64_t n, int tile) {
   return static_cast<int>((n + tile - 1) / tile);
 }
 
+template <typename T>
+int launch_shard_shift(int64_t n, int64_t offset, int count, void** outs,
+                       const void* const* heads, const void* const* tails,
+                       const int64_t* rs, const int64_t* limits,
+                       void* pos_out, cudaStream_t s) {
+  ShardShiftOut<T> out{};
+  for (int q = 0; q < count; ++q) {
+    if (rs[q] < 0 || rs[q] >= n) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    out.plane[q] = static_cast<T*>(outs[q]);
+    out.head[q] = static_cast<const T*>(heads[q]);
+    out.tail[q] = static_cast<const T*>(tails[q]);
+    out.r[q] = rs[q];
+    out.limit[q] = limits[q];
+  }
+  shard_shift_planes_kernel<T><<<blocks_of(n, kShiftTile), kShiftThreads, 0,
+                                 s>>>(n, offset, count, out,
+                                      static_cast<T*>(pos_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -484,11 +587,11 @@ int ss_pack_keys(const void* text, int64_t n, int64_t chunk, int keys,
   if (idx_bytes == 4) {
     pack_keys_kernel<int><<<blocks, kPackThreads, smem, s>>>(
         t, n, chunk, keys, stride, k, static_cast<int*>(chunk_out),
-        static_cast<int*>(pos_out));
+        static_cast<int*>(pos_out), nullptr, 0, 0);
   } else {
     pack_keys_kernel<int64_t><<<blocks, kPackThreads, smem, s>>>(
         t, n, chunk, keys, stride, k, static_cast<int64_t*>(chunk_out),
-        static_cast<int64_t*>(pos_out));
+        static_cast<int64_t*>(pos_out), nullptr, 0, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -532,6 +635,64 @@ int ss_shift_planes(const void* rank, int64_t n, int64_t chunk,
         static_cast<int64_t*>(pos_out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The operands of the initial sort of one shard of the global build: as
+// ss_pack_keys without chunks, the bytes past the shard's n from the halo
+// (halo_len bytes, the next shard's first; zero past them, or where halo
+// is null) and the positions from pos_offset.
+int ss_shard_pack_keys(const void* text, int64_t n, const void* halo,
+                       int64_t halo_len, int keys, int64_t stride,
+                       void* key_out, void* pos_out, int64_t pos_offset,
+                       int idx_bytes, void* stream) {
+  if (n < 1 || halo_len < 0 || (halo == nullptr && halo_len != 0) ||
+      keys < 1 || keys > kMaxPackKeys || stride < n || stride % 4 != 0 ||
+      (idx_bytes != 4 && idx_bytes != 8) ||
+      (reinterpret_cast<uintptr_t>(key_out) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = 4 * (kPackThreads + keys + 1);
+  const int blocks = blocks_of(n, kPackTile);
+  const auto* t = static_cast<const uint8_t*>(text);
+  const auto* h = static_cast<const uint8_t*>(halo);
+  auto* k = static_cast<int*>(key_out);
+  // one chunk, which ends past the halo: no key is cut before it
+  const int64_t chunk = n + halo_len;
+  if (idx_bytes == 4) {
+    pack_keys_kernel<int><<<blocks, kPackThreads, smem, s>>>(
+        t, n, chunk, keys, stride, k, nullptr, static_cast<int*>(pos_out), h,
+        halo_len, pos_offset);
+  } else {
+    pack_keys_kernel<int64_t><<<blocks, kPackThreads, smem, s>>>(
+        t, n, chunk, keys, stride, k, nullptr,
+        static_cast<int64_t*>(pos_out), h, halo_len, pos_offset);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shifted rank planes of one shard of n elements of elem_bytes (4 or
+// 8), 0 <= count <= kMaxShifts: outs[s][i] = the window of shift s at i
+// where i < limits[s] (heads[s][i + rs[s]] below n, else tails[s][i +
+// rs[s] - n]; a null source reads -1), else -(offset + i + 1); the global
+// position offset + i at pos_out unless it is null. outs, heads, tails,
+// rs and limits are host arrays.
+int ss_shard_shift_planes(int64_t n, int64_t offset, int elem_bytes,
+                          int count, void** outs, const void* const* heads,
+                          const void* const* tails, const int64_t* rs,
+                          const int64_t* limits, void* pos_out,
+                          void* stream) {
+  if (n < 1 || offset < 0 || count < 0 || count > kMaxShifts ||
+      (elem_bytes != 4 && elem_bytes != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem_bytes == 4) {
+    return launch_shard_shift<int>(n, offset, count, outs, heads, tails, rs,
+                                   limits, pos_out, s);
+  }
+  return launch_shard_shift<int64_t>(n, offset, count, outs, heads, tails,
+                                     rs, limits, pos_out, s);
 }
 
 // Bytes of scratch `ss_head_ranks` needs for n slots: a look-back word a

@@ -1,4 +1,4 @@
-"""The doubling engine's steps between the sorts, as three Hopper kernels.
+"""The doubling engine's steps between the sorts, as Hopper kernels.
 
 Every engine reaches these steps through `engines/doubling.py`: the flat
 and the partitioned build, and `build_ints_with_isa` under dc3 and bstar.
@@ -16,7 +16,15 @@ and the partitioned build, and `build_ints_with_isa` under dc3 and bstar.
     stringsearch_tpu/parallel/global_sa.py's `_initial_shard_ranks` and
     `_doubling_step`, and `_headslot_ranks_from_sorted`, l.120, but for
     the cross-shard carry and the last slot's boundary term, which
-    `parallel/global_sa.py` adds).
+    `parallel/global_sa.py` adds);
+  * `shard_pack_keys`: `pack_keys`' kernel on one shard of the global
+    build, the bytes past the shard from the next shard's first `depth`
+    (the packing of `_initial_shard_ranks`, l.166-189, with no
+    concatenation) and global positions;
+  * `shard_shift_planes`: the shifted rank planes of one shard of a global
+    round from the shards the round's ppermutes delivered, with the end
+    marker past the padded text and the global positions (its
+    `_shifted_ranks`, l.216, once a shift, and the round's `arange`).
 
 None of them replaces a Pallas kernel: the JAX package writes these steps
 as jnp ops inside one jitted build, which XLA fuses into a few passes. The
@@ -62,10 +70,12 @@ PACK_TILE = 1024
 SHIFT_TILE = 1024
 SCAN_TILE = 2048
 
-# Kernel launches in this process, by function (`shard_head_ranks` is
-# `head_ranks`' kernel on one shard of the global build).
+# Kernel launches in this process, by function (`shard_head_ranks` and
+# `shard_pack_keys` are the kernels of `head_ranks` and `pack_keys` on one
+# shard of the global build).
 launches = {"pack_keys": 0, "shift_planes": 0, "head_ranks": 0,
-            "shard_head_ranks": 0}
+            "shard_head_ranks": 0, "shard_pack_keys": 0,
+            "shard_shift_planes": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -84,7 +94,16 @@ def _load(path: str) -> ctypes.CDLL:
     lib.ss_head_ranks.argtypes = [
         ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
         ctypes.c_int64, _P, ctypes.c_int64, _P, ctypes.c_int, _P, _P, _P]
-    for fn in (lib.ss_pack_keys, lib.ss_shift_planes, lib.ss_head_ranks):
+    lib.ss_shard_pack_keys.argtypes = [
+        _P, ctypes.c_int64, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        _P, _P, ctypes.c_int64, ctypes.c_int, _P]
+    lib.ss_shard_shift_planes.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64), _P,
+        _P]
+    for fn in (lib.ss_pack_keys, lib.ss_shift_planes, lib.ss_head_ranks,
+               lib.ss_shard_pack_keys, lib.ss_shard_shift_planes):
         fn.restype = ctypes.c_int
     lib.ss_head_ranks_scratch_bytes.argtypes = [ctypes.c_int64]
     lib.ss_head_ranks_scratch_bytes.restype = ctypes.c_int64
@@ -458,3 +477,178 @@ def shard_head_ranks(keys, prev, offset: int, idx) -> tuple:
         prev = prev.to(torch.int64).contiguous()
     return _launch_heads("shard_head_ranks", keys, keys[0].shape[0], prev,
                          offset, idx, keys[0].device)
+
+
+# ---------------------------------------------------------------------------
+# shard_pack_keys: pack_keys on one shard of the global build
+# ---------------------------------------------------------------------------
+
+
+def _check_shard_pack(chunk, halo, depth: int, offset: int, idx) -> None:
+    _check_pack(chunk, depth, idx)
+    if halo is not None and (halo.dtype != torch.uint8
+                             or halo.shape != (depth,)
+                             or halo.device != chunk.device):
+        raise ValueError(f"halo must be None or {depth} uint8 bytes on the "
+                         f"chunk's device")
+    if offset < 0:
+        raise ValueError(f"offset must be >= 0, got {offset}")
+
+
+def plain_shard_pack_keys(chunk, halo, depth: int, offset: int,
+                          idx=_I32) -> tuple:
+    """`shard_pack_keys` as the chain of PyTorch ops the global build ran
+    before, on the chunk's device."""
+    _check_shard_pack(chunk, halo, depth, offset, idx)
+    length = chunk.shape[0]
+    nxt = chunk.new_zeros((depth,)) if halo is None else halo
+    ext = torch.cat([chunk, nxt]).to(_I32)  # [L + depth]
+    keys = []
+    for k in range(depth // 4):
+        o = 4 * k
+        keys.append(((ext[o:o + length] << 24)
+                     | (ext[o + 1:o + 1 + length] << 16)
+                     | (ext[o + 2:o + 2 + length] << 8)
+                     | ext[o + 3:o + 3 + length]) ^ BIAS)
+    pos = offset + torch.arange(length, dtype=idx, device=chunk.device)
+    return (*keys, pos)
+
+
+def shard_pack_keys(chunk, halo, depth: int, offset: int, idx=_I32) -> tuple:
+    """The operands of the global build's initial sort on one shard.
+
+    `chunk` is the shard's [L] uint8 text, `halo` the next shard's first
+    `depth` bytes (None past the last shard: zeros). Returns (key_0, ..,
+    key_{depth/4 - 1}, position): key k of position i is bytes i+4k ..
+    i+4k+3 of the chunk followed by the halo, big-endian, XOR 0x80000000,
+    as int32 (as `pack_keys` packs them); the position is offset + i, of
+    dtype `idx`.
+    """
+    _check_shard_pack(chunk, halo, depth, offset, idx)
+    if not _on_cuda(chunk, "chunk"):
+        return plain_shard_pack_keys(chunk, halo, depth, offset, idx)
+    n = chunk.shape[0]
+    nk = depth // 4
+    if nk > _MAX_PACK_KEYS:
+        raise ValueError(f"shard_pack_keys takes depth <= "
+                         f"{4 * _MAX_PACK_KEYS} on CUDA, got {depth}")
+    if idx == _I32 and offset + n >= 1 << 31:
+        raise ValueError("int32 positions need offset + L < 2^31")
+    chunk = chunk.contiguous()
+    if halo is not None:
+        halo = halo.contiguous()
+    stride = -(-n // 4) * 4
+    block = torch.empty((nk, stride), dtype=_I32, device=chunk.device)
+    pos = torch.empty(n, dtype=idx, device=chunk.device)
+    if n:
+        _launch("shard_pack_keys", "ss_shard_pack_keys", chunk.device,
+                chunk.data_ptr(), n, None if halo is None else halo.data_ptr(),
+                0 if halo is None else depth, nk, stride, block.data_ptr(),
+                pos.data_ptr(), offset, pos.element_size())
+    return (*(block[k, :n] for k in range(nk)), pos)
+
+
+# ---------------------------------------------------------------------------
+# shard_shift_planes: the shifted ranks of one shard of a global round
+# ---------------------------------------------------------------------------
+
+
+def _device_of(device) -> torch.device:
+    """`device` as a torch.device, a CUDA device with its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _check_shard_shift(windows, length: int, offset: int, n_pad: int, idx,
+                       device) -> list:
+    windows = [(int(h), head, tail) for h, head, tail in windows]
+    if idx not in _IDX:
+        raise TypeError(f"idx must be torch.int32 or torch.int64, got {idx}")
+    if length < 1 or offset < 0 or n_pad < offset + length:
+        raise ValueError(f"need length >= 1 and 0 <= offset <= n_pad - "
+                         f"length, got {length}, {offset}, {n_pad}")
+    for h, head, tail in windows:
+        if not 0 <= h <= n_pad:
+            raise ValueError(f"a shift must lie in [0, n_pad], got {h}")
+        for t in (head, tail):
+            if t is not None and (t.dtype != idx or t.shape != (length,)
+                                  or t.device != device):
+                raise TypeError(f"a window's shards must be [{length}] "
+                                f"{idx} on {device}, got "
+                                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    return windows
+
+
+def plain_shard_shift_planes(windows, length: int, offset: int, n_pad: int,
+                             idx, device) -> list:
+    """`shard_shift_planes` as the chain of PyTorch ops the global build
+    ran before, on `device`."""
+    device = _device_of(device)
+    windows = _check_shard_shift(windows, length, offset, n_pad, idx,
+                                 device)
+    gidx = offset + torch.arange(length, dtype=idx, device=device)
+    out = []
+    for h, head, tail in windows:
+        r = h % length
+        a = torch.full_like(gidx, -1) if head is None else head
+        if r:
+            b = torch.full_like(gidx, -1) if tail is None else tail
+            a = torch.cat([a[r:], b[:r]])
+        if h < n_pad:
+            out.append(torch.where(gidx < n_pad - h, a, -(gidx + 1)))
+        else:
+            out.append(-(gidx + 1))
+    return out + [gidx]
+
+
+def shard_shift_planes(windows, length: int, offset: int, n_pad: int, idx,
+                       device) -> list:
+    """[rank shifted by h for each window] + [the global positions], on
+    one shard of a global round.
+
+    The shard holds the global positions offset .. offset + length - 1 of
+    a padded text of n_pad. Each window is (h, head, tail), 0 <= h <=
+    n_pad: `head` is the [length] rank shard that holds global position
+    offset + (h // length) * length, `tail` the shard after it (None where
+    a shard lies past the last one, or where h % length is 0 and no tail
+    is read). Entry i of the plane of shift h is rank[offset + i + h], read
+    from the two shards, or the marker -(offset + i + 1) where offset + i
+    + h >= n_pad. The shards lie on `device`; all planes have dtype `idx`,
+    on `device`.
+    """
+    device = _device_of(device)
+    windows = _check_shard_shift(windows, length, offset, n_pad, idx,
+                                 device)
+    if device.type == "cpu":
+        return plain_shard_shift_planes(windows, length, offset, n_pad, idx,
+                                        device)
+    if device.type != "cuda":
+        raise ValueError(f"the windows must lie on the CPU or a CUDA device, "
+                         f"got {device}")
+    if idx == _I32 and n_pad >= 1 << 31:
+        raise ValueError("int32 positions need n_pad < 2^31")
+    windows = [(h, *(None if t is None else t.contiguous()
+                     for t in (head, tail))) for h, head, tail in windows]
+    out = [torch.empty(length, dtype=idx, device=device) for _ in windows]
+    pos = torch.empty(length, dtype=idx, device=device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    # one launch a group of at most _MAX_SHIFTS planes; the first also
+    # writes the positions
+    for g in range(0, max(len(windows), 1), _MAX_SHIFTS):
+        group = windows[g:g + _MAX_SHIFTS]
+        k = max(len(group), 1)
+        _launch("shard_shift_planes", "ss_shard_shift_planes", device,
+                length, offset, pos.element_size(), len(group),
+                (_P * k)(*(t.data_ptr() for t in out[g:g + _MAX_SHIFTS])),
+                (_P * k)(*(ptr(head) for _h, head, _t in group)),
+                (_P * k)(*(ptr(tail) for _h, _hd, tail in group)),
+                (ctypes.c_int64 * k)(*(h % length for h, *_ in group)),
+                (ctypes.c_int64 * k)(*(min(max(n_pad - h - offset, 0),
+                                           length) for h, *_ in group)),
+                pos.data_ptr() if g == 0 else None)
+    return out + [pos]

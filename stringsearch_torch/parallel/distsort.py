@@ -32,10 +32,20 @@ What differs from the JAX package, and why:
     the boundary repair on the host.
   * Every local sort is `ops.bitonic.device_sort`, which is stable (on
     CUDA the hand-written radix sort). `lax.sort` is not, so where the keys
-    tie (`redistribute_permutation`'s and `rank_interval_sort`'s routing
-    sorts by destination) the buffers may be laid out differently from
-    JAX's; what the keys determine (the routed contents once re-sorted,
-    the results) is the same.
+    tie the buffers may be laid out differently from JAX's; what the keys
+    determine (the routed contents once re-sorted, the results) is the
+    same.
+  * The all_to_all routes build their send buffers with
+    `ops/route.py:route_partition` (on CUDA one pass of a stable counting
+    partition by destination) where the JAX package sorts by destination
+    and scatters, and `redistribute_permutation`'s receivers place with
+    `place_received` (one scatter pass). `rank_interval_sort`'s buffers
+    equal a stable sort by destination element for element;
+    `redistribute_permutation`'s order each (source, destination) pair
+    by window of gidx % L, and by source order inside a window, where the
+    JAX package orders it by gidx. Its receivers place by gidx % L, so the
+    outputs, the per-pair counts, the overflow decision and the bytes each
+    shard sends are the same.
   * A merge-split stage merges the two sorted chunks (`merge_split`)
     where the JAX package sorts their concatenation again: the same half,
     element for element, on the same device.
@@ -50,9 +60,13 @@ import torch
 
 from stringsearch_torch.ops.bitonic import device_sort
 from stringsearch_torch.ops.merge import merge_split
+from stringsearch_torch.ops.route import (
+    place_received,
+    receiver_windows,
+    route_partition,
+)
 from stringsearch_torch.parallel import collectives as coll
 
-_I32 = torch.int32
 
 #: fast paths that fell back to the merge-split sort in this process, by
 #: cause: "redistribute" (a pair over capacity), "rank_interval" (the
@@ -77,12 +91,6 @@ def host_flag(flags) -> bool:
     """The host value of a replicated flag (one sync), read at a local
     shard."""
     return bool(coll.first_local(flags))
-
-
-def _seg_rank(dest_s: torch.Tensor) -> torch.Tensor:
-    """Rank of each element inside its run of equal sorted destinations."""
-    i = torch.arange(dest_s.shape[0], device=dest_s.device)
-    return i - torch.searchsorted(dest_s, dest_s, side="left")
 
 
 def _merge_halves(mine, theirs, mine_first: bool, keep_low: bool,
@@ -149,18 +157,17 @@ def redistribute_cap(p: int, chunk_elems: int, cap_factor: int = 2) -> int:
     return int(min(chunk_elems, cap_factor * (-(-chunk_elems // p))))
 
 
-def _send_buffers(routed, k: int, p: int, cap: int, fill) -> list:
-    """[P, cap] send buffers of operand k: slot (dest, rank) of each shard's
-    routed elements; `routed[me]` = (dest_s, rank, operands sorted by
-    dest)."""
-    out = [None] * len(routed)
-    for me in coll.local_parts(routed):
-        dest_s, rank, ops_s = routed[me]
-        send = torch.full((p, cap), fill, dtype=ops_s[k].dtype,
-                          device=ops_s[k].device)
-        send[dest_s, rank] = ops_s[k]
-        out[me] = send
-    return out
+def _route(src, operands, fills, length: int, p: int, cap: int,
+           clamp: bool, windows: int = 1) -> tuple:
+    """Every local shard's [P, cap] send buffers of `operands` routed by
+    `src` (`route_partition`), and the replicated overflow flag. Returns
+    (buffers: a tuple of per-shard lists, one an operand; flags)."""
+    sends, over = [None] * p, [None] * p
+    for me in coll.local_parts(src):
+        sends[me], over[me] = route_partition(
+            src[me], length, p, _local(operands, me), fills, cap, clamp,
+            windows)
+    return _by_operand(sends), coll.psum(over)
 
 
 def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
@@ -176,6 +183,14 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
 
     `gidx` is a list of per-shard tensors, `operands` a tuple of such
     lists. Returns the operands in destination order (slot gidx % L).
+
+    Each shard's send buffers come from one `route_partition` (gidx and
+    the operands, routed by gidx // L), which orders every (source,
+    destination) pair by window of gidx % L (`receiver_windows`) and by
+    source order inside a window; the JAX package sorts each pair by
+    gidx. The receivers place every element at gidx % L
+    (`place_received`), so the result does not depend on that order, and
+    the pairs' counts, the overflow flag and the bytes sent are the same.
     """
     gidx = list(gidx)
     operands = tuple(list(op) for op in operands)
@@ -185,33 +200,24 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
         srt = device_sort((gidx[0],) + _local(operands, 0), 1)
         return tuple([x] for x in srt[1:])
     cap = redistribute_cap(p, length, cap_factor)
-    routed, over = [None] * p, [None] * p
-    for me in coll.local_parts(gidx):
-        dest = torch.div(gidx[me], length, rounding_mode="floor").to(_I32)
-        arrs = device_sort((dest, gidx[me]) + _local(operands, me), 2)
-        rank = _seg_rank(arrs[0])
-        over[me] = (rank >= cap).any().to(_I32)
-        routed[me] = (arrs[0], rank, arrs[1:])
-    if host_flag(coll.psum(over)):
-        del routed
+    # each row by window of the receiver's slots, so its scatter writes
+    # nearby slots together
+    sends, over = _route(gidx, (gidx,) + operands,
+                         (-1,) + (0,) * len(operands), length, p, cap, False,
+                         receiver_windows(p, length))
+    if host_flag(over):
+        del sends
         fallbacks["redistribute"] += 1
         return sharded_sort((gidx,) + operands, num_keys=1)[1:]
 
-    recv_g = coll.all_to_all(_send_buffers(routed, 0, p, cap, -1))
-    # receivers scatter into [L + 1]: slot L takes the empty slots' writes
-    off = coll.each(recv_g, lambda me: torch.where(
-        recv_g[me] >= 0, recv_g[me] % length, length).reshape(-1))
-    del recv_g
+    sends = list(sends)
+    recv_g = coll.all_to_all(sends.pop(0))
     outs = []
-    for k in range(1, 1 + len(operands)):
-        recv = coll.all_to_all(_send_buffers(routed, k, p, cap, 0))
-        col = [None] * p
-        for me in coll.local_parts(recv):
-            out = recv[me].new_zeros((length + 1,))
-            out[off[me]] = recv[me].reshape(-1)
-            col[me] = out[:length]
+    for _ in operands:
+        recv = coll.all_to_all(sends.pop(0))
+        outs.append(coll.each(recv, lambda me: place_received(
+            recv_g[me], (recv[me],), length)[0]))
         del recv
-        outs.append(col)
     return tuple(outs)
 
 
@@ -251,28 +257,22 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
         return sharded_sort(operands, num_keys=num_keys)
     sent = torch.iinfo(coll.first_local(operands[0]).dtype).max
     cap = redistribute_cap(p, length, cap_factor)
-    routed, over = [None] * p, [None] * p
-    for me in coll.local_parts(operands[0]):
-        rank = operands[0][me]
-        dest = torch.div(rank, length, rounding_mode="floor").clamp(
-            0, p - 1).to(_I32)
-        srt = device_sort((dest,) + _local(operands, me), 1)
-        seg_rank = _seg_rank(srt[0])
-        over[me] = (seg_rank >= cap).any().to(_I32)
-        routed[me] = (srt[0], seg_rank, srt[1:])
-    if host_flag(coll.psum(over)):
-        del routed
+    # routed by the head-slot rank's shard, clamped into [0, P)
+    sends, over = _route(operands[0], operands,
+                         (sent,) + (0,) * (len(operands) - 1), length, p, cap,
+                         True)
+    if host_flag(over):
+        del sends
         fallbacks["rank_interval"] += 1
         return sharded_sort(operands, num_keys=num_keys)
 
     # receive buffer = p * cap rows (every pair at full capacity); pads
     # carry rank `sent` and sort last
+    sends = list(sends)
     recvs = []
-    for k in range(len(operands)):
-        recv = coll.all_to_all(_send_buffers(routed, k, p, cap,
-                                             sent if k == 0 else 0))
+    for _ in operands:
+        recv = coll.all_to_all(sends.pop(0))
         recvs.append(coll.each(recv, lambda me: recv[me].reshape(-1)))
-    del routed
     srt2 = [None] * p
     for me in coll.local_parts(recvs[0]):
         srt2[me] = device_sort(_local(recvs, me), max(num_keys, 1))

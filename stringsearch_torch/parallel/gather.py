@@ -27,8 +27,8 @@ from __future__ import annotations
 import torch
 
 from stringsearch_torch.ops.bitonic import device_sort
+from stringsearch_torch.ops.route import seg_rank
 from stringsearch_torch.parallel import collectives as coll
-from stringsearch_torch.parallel.distsort import _seg_rank
 
 _I32 = torch.int32
 
@@ -45,7 +45,7 @@ def _route(values, idx, cap: int):
         m = i.shape[0]
         owner_s, off_s, src_s = device_sort(
             (owner, off, torch.arange(m, dtype=_I32, device=i.device)), 1)
-        rank = _seg_rank(owner_s)
+        rank = seg_rank(owner_s)
         # a request past the capacity writes slot cap - 1 (the overflow
         # flag makes the caller discard the result)
         slot = rank.clamp(max=cap - 1)

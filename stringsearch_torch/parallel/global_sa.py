@@ -54,7 +54,11 @@ What differs from the JAX package, and why:
   * The neighbour diff and `lax.cummax` of head slots after a sort are
     one `ops/steps.py:shard_head_ranks` a shard (on CUDA the head-ranks
     kernel; on the CPU the eager chain); in a compacted round `lax.cummax`
-    is `last_flagged` (a cumsum, a scatter and a gather).
+    is `last_flagged` (a cumsum, a scatter and a gather). The initial
+    operands are one `shard_pack_keys` a shard and a round's shifted ranks
+    and positions one `shard_shift_planes` a shard (on CUDA a launch of
+    `pack_keys`' kernel with the next shard's bytes as its halo, and one
+    of the shard shift kernel, over what the ppermutes delivered).
   * The jitted query programs (`_jit_query`, `_jit_search`) are the query
     methods themselves: every shard's binary search is a generator of
     core/search.py, all driven in lock step (`run_in_lockstep`), so the
@@ -82,7 +86,12 @@ import torch
 from stringsearch_torch.core import compare as cmp
 from stringsearch_torch.core.types import BytesLike, as_text_tensor
 from stringsearch_torch.ops.bitonic import device_sort
-from stringsearch_torch.ops.steps import last_flagged, shard_head_ranks
+from stringsearch_torch.ops.steps import (
+    last_flagged,
+    shard_head_ranks,
+    shard_pack_keys,
+    shard_shift_planes,
+)
 from stringsearch_torch.parallel import collectives as coll
 from stringsearch_torch.parallel.distsort import (
     host_flag,
@@ -100,8 +109,6 @@ from stringsearch_torch.parallel.multihost import gather_to_host
 _I32 = torch.int32
 _IDX = (torch.int32, torch.int64)
 _AXIS = "parts"
-# XOR with INT32_MIN flips bit 31: maps uint32 order onto int32 order
-_BIAS = torch.iinfo(torch.int32).min
 
 #: doubling rounds per block (the host reads the tied count once a
 #: round, so a block only fixes what rounds_run counts)
@@ -190,7 +197,7 @@ def _sorted_head_ranks(keys_s, fill, idx, first_head: bool):
 def _initial_operands(depth: int, idx, chunks) -> tuple:
     """The initial sort's operands, shard-wise: depth/4 packed key words
     (int32, bit 31 flipped) of the first `depth` raw bytes, and the global
-    position.
+    position, from one `shard_pack_keys` a shard (on CUDA one launch).
 
     The window past a shard's end is the next shard's first `depth` bytes
     (one ppermute); past the LAST shard it is zero-filled — the raw-byte
@@ -200,21 +207,11 @@ def _initial_operands(depth: int, idx, chunks) -> tuple:
     length = coll.first_local(chunks).shape[0]
     nxt = coll.ppermute(coll.each(chunks, lambda me: chunks[me][:depth]),
                         [(i, (i - 1) % p) for i in range(p)])
-    if nxt[-1] is not None:
-        nxt[-1] = torch.zeros_like(nxt[-1])
-    nk = depth // 4
-    keys = [[None] * p for _ in range(nk)]
-    gidx = [None] * p
-    for me in coll.local_parts(chunks):
-        ext = torch.cat([chunks[me], nxt[me]]).to(_I32)  # [L + depth]
-        for k in range(nk):
-            o = 4 * k
-            keys[k][me] = (((ext[o:o + length] << 24)
-                            | (ext[o + 1:o + 1 + length] << 16)
-                            | (ext[o + 2:o + 2 + length] << 8)
-                            | ext[o + 3:o + 3 + length]) ^ _BIAS)
-        gidx[me] = _global_iota(me, length, idx, chunks[me].device)
-    return tuple(keys) + (gidx,)
+    packed = coll.each(chunks, lambda me: shard_pack_keys(
+        chunks[me], nxt[me] if me < p - 1 else None, depth, me * length,
+        idx))
+    del nxt
+    return tuple(_by_plane(packed, depth // 4 + 1))
 
 
 def _initial_shard_ranks(depth: int, idx, chunks):
@@ -232,43 +229,50 @@ def _initial_shard_ranks(depth: int, idx, chunks):
     return rank, gidx_s, rank_s, count
 
 
-def _shifted_ranks(rank, h: int, idx) -> list:
-    """rank_h[i] = rank[global i + h]; the marker -(i+1) past the end.
+def _shifted_ranks(rank, hs, idx) -> tuple:
+    """rank_h[i] = rank[global i + h] for each h in `hs`; the marker
+    -(i+1) past the end. Returns (the shifted planes, one per-shard list a
+    shift; the global positions).
 
     The marker is negative (ended suffixes sort before every continuing
     one) and strictly decreasing in global i, so ties among ended suffixes
-    split at once, shortest first.
+    split at once, shortest first. A shift's window comes from at most two
+    shards (the ppermutes of the JAX package's `_shifted_ranks`, one a
+    shard offset, in its order); each shard then writes every plane and
+    its positions with one `shard_shift_planes` (on CUDA one launch).
     """
     p = len(rank)
     length = coll.first_local(rank).shape[0]
-    d, r = divmod(h, length)
-
-    def from_offset(delta):
-        if delta >= p:
-            return coll.each(rank, lambda me: torch.full_like(rank[me], -1))
-        # shard i reads shard i + delta; delta 0 is this shard's own
-        src = (list(rank) if delta == 0 else coll.ppermute(
-            rank, [(i, i - delta) for i in range(delta, p)]))
-        return coll.each(src, lambda me: src[me] if me + delta < p
-                         else torch.full_like(src[me], -1))
-
-    if r == 0:
-        shifted = from_offset(d)
-    else:
-        a = from_offset(d)      # provides positions [r, L) of the window
-        b = from_offset(d + 1)  # provides positions [0, r)
-        shifted = coll.each(a, lambda me: torch.cat([a[me][r:],
-                                                     b[me][:r]]))
-        del a, b
     n_pad = length * p
 
-    def shifted_or_marker(me):
-        gidx = _global_iota(me, length, idx, rank[me].device)
-        if h < n_pad:
-            return torch.where(gidx < n_pad - h, shifted[me], -(gidx + 1))
-        return -(gidx + 1)
+    def from_offset(delta):
+        # shard i reads shard i + delta; delta 0 is this shard's own, and
+        # a shard past the last reads none
+        if delta >= p:
+            return [None] * p
+        src = (list(rank) if delta == 0 else coll.ppermute(
+            rank, [(i, i - delta) for i in range(delta, p)]))
+        return [s if me + delta < p else None for me, s in enumerate(src)]
 
-    return coll.each(rank, shifted_or_marker)
+    windows = []
+    for h in hs:
+        d, r = divmod(h, length)
+        head = from_offset(d)  # positions [r, L) of the window
+        tail = from_offset(d + 1) if r else [None] * p  # positions [0, r)
+        windows.append((h, head, tail))
+    out = coll.each(rank, lambda me: shard_shift_planes(
+        [(h, head[me], tail[me]) for h, head, tail in windows], length,
+        me * length, n_pad, idx, rank[me].device))
+    del windows
+    planes = _by_plane(out, len(hs) + 1)
+    return planes[:-1], planes[-1]
+
+
+def _by_plane(per_shard, width: int) -> list:
+    """Per-shard lists of planes (None for a remote shard) -> one
+    per-shard list a plane."""
+    return [[None if t is None else t[k] for t in per_shard]
+            for k in range(width)]
 
 
 def _doubling_step(chunk_len: int, total_shards: int, idx, h: int, rank,
@@ -279,10 +283,8 @@ def _doubling_step(chunk_len: int, total_shards: int, idx, h: int, rank,
     class, so one round multiplies the resolved depth by `fan`.
     """
     n_pad = chunk_len * total_shards
-    shifts = [_shifted_ranks(rank, min(k * h, n_pad), idx)
-              for k in range(1, fan)]
-    gidx = coll.each(rank, lambda me: _global_iota(me, chunk_len, idx,
-                                                   rank[me].device))
+    shifts, gidx = _shifted_ranks(
+        rank, [min(k * h, n_pad) for k in range(1, fan)], idx)
     # head-slot primary key: the interval-routed sort (merge-split on
     # adversarial rank skew)
     out = rank_interval_sort((rank, *shifts, gidx), num_keys=fan + 1)

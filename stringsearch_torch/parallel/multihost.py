@@ -230,6 +230,10 @@ def selftest_needles(text: np.ndarray) -> list:
 
 #: the bytes of the self-test's single-byte searches
 SELFTEST_BYTES = (0, 1, 7, 97, 255)
+# the global build's routing and placement kernels (`ops/route.py`,
+# `ops/steps.py`), whose launches a self-test build counts
+ROUTE_STEPS = ("route_partition", "place_received", "shard_pack_keys",
+               "shard_shift_planes")
 
 
 def _check(cond: bool, what: str) -> None:
@@ -243,7 +247,7 @@ def _selftest_run(pid: int, devs_per_proc: int, work: str, idx,
     import torch.distributed as dist
 
     from stringsearch_torch import NotSorted
-    from stringsearch_torch.ops import merge, radix_sort, steps
+    from stringsearch_torch.ops import merge, radix_sort, route, steps
     from stringsearch_torch.ops.bitonic import PlainSortCalls
     from stringsearch_torch.parallel import distsort, global_sa
     from stringsearch_torch.parallel.comm_model import executed_bytes
@@ -266,6 +270,8 @@ def _selftest_run(pid: int, devs_per_proc: int, work: str, idx,
         global_sa.compact_fallbacks = 0
         radix_sort.launches = 0
         merge.launches = 0
+        for name in ROUTE_STEPS:
+            (route if name in route.launches else steps).launches[name] = 0
         steps.launches["shard_head_ranks"] = 0
         if cuda:
             torch.cuda.empty_cache()
@@ -293,6 +299,9 @@ def _selftest_run(pid: int, devs_per_proc: int, work: str, idx,
         "radix_launches": radix_sort.launches,
         "merge_launches": merge.launches,
         "head_ranks_launches": steps.launches["shard_head_ranks"],
+        "route_launches": {
+            name: (route if name in route.launches else steps).launches[name]
+            for name in ROUTE_STEPS},
         "plain_sort_calls": plain.calls,
         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }
@@ -305,6 +314,13 @@ def _selftest_run(pid: int, devs_per_proc: int, work: str, idx,
                "no merge_split launched")
         _check(report["head_ranks_launches"] > 0,
                "no shard_head_ranks launched")
+        # one shard routes nothing; a build that resolves at once runs no
+        # round to shift
+        needed = {"route_partition": p > 1, "place_received": p > 1,
+                  "shard_pack_keys": True,
+                  "shard_shift_planes": g.rounds_executed > 0}
+        for name, launched in report["route_launches"].items():
+            _check(launched > 0 or not needed[name], f"no {name} launched")
         _check(plain.calls == 0, f"the plain sort ran {plain.calls} times")
 
     # this process's shards against the expected SA, slot for slot: slots
@@ -386,7 +402,8 @@ def _selftest_child(init: str, nproc: int, pid: int, devs_per_proc: int,
           f"{report['expected_bytes']}), radix sort launches "
           f"{report['radix_launches']}, merge_split launches "
           f"{report['merge_launches']}, shard_head_ranks launches "
-          f"{report['head_ranks_launches']}, plain sort calls "
+          f"{report['head_ranks_launches']}, routing and placement "
+          f"launches {report['route_launches']}, plain sort calls "
           f"{report['plain_sort_calls']}, peak memory "
           f"{report['peak_bytes']} B", flush=True)
 

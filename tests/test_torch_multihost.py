@@ -309,8 +309,8 @@ def cuda():
 def test_two_processes_on_the_card(cuda, tmp_path):
     """(g) 2 processes x 2 shards of one card at 2^20, gloo staging
     through the host (NCCL refuses two ranks on one card): the radix sort
-    runs in both processes, the plain sort in neither (each child checks),
-    and the SA equals the oracle's."""
+    and the routing and placement kernels run in both processes, the plain
+    sort in neither (each child checks), and the SA equals the oracle's."""
     text = enwik_like(1 << 20, seed=7)
     reports = multihost.run_selftest(nproc=2, devs_per_proc=2,
                                      device="cuda", backend="gloo",
@@ -320,4 +320,5 @@ def test_two_processes_on_the_card(cuda, tmp_path):
         assert r["backend"] == "gloo" and r["device"].startswith("cuda")
         assert r["radix_launches"] > 0 and r["plain_sort_calls"] == 0
         assert r["merge_launches"] > 0 and r["head_ranks_launches"] > 0
+        assert all(v > 0 for v in r["route_launches"].values())
         assert r["peak_bytes"] > 0

@@ -94,7 +94,7 @@ def test_port_never_imports_jax():
         "for need in ('engines.dc3', 'engines.bstar', 'harness.cli',\n"
         "             'harness.fuzz', 'harness.microbench',\n"
         "             'harness.scaling', 'ops.radix', 'ops.radix_sort',\n"
-        "             'ops.steps', 'ops.merge',\n"
+        "             'ops.steps', 'ops.merge', 'ops.route',\n"
         "             'parallel.partitioned', 'parallel.collectives',\n"
         "             'parallel.mesh', 'parallel.distsort',\n"
         "             'parallel.gather', 'parallel.global_sa',\n"
