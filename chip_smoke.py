@@ -104,7 +104,13 @@ present. Phases, each printed with its result and time:
      `sa_simplesearch` equal to the oracle's; at 2^20 on eight shards
      (`b"ab" * 2^19`, all-equal bytes, enwik-like text) each equal to
      `oracle.build`, with compaction and the merge-split fallback entered;
-     `scaling.measure(2^24)` at 1, 2, 4, 8 shards of the card in both
+     `build_global(fan=8)` and `fan=9` on four shards at 2^24 (a round's
+     route of nine and ten operands, past one launch's eight), each equal
+     to the flat SA; builds on 512 shards of the card: at 2^24 (L = 2^15,
+     where the pairs' capacity holds) equal to the flat SA with no
+     redistribute fallback, and at 2^20 (L = 2048, where both routes
+     overflow and fall back, as in the JAX package) equal to
+     `oracle.build`; `scaling.measure(2^24)` at 1, 2, 4, 8 shards of the card in both
      modes; `cli crosscheck --engines doubling,global` on 2^24 bytes, and
      `--trace` of the global engine on 64 KiB on the GPU and the CPU,
      byte-identical; `fuzz --targets global`, also with `--idx64`;
@@ -158,14 +164,18 @@ present. Phases, each printed with its result and time:
      differs): `shard_pack_keys` of the initial operands, with and without
      the next shard's bytes; `route_partition` of the initial
      redistribute (gidx and head-slot ranks, by window of the receiver's
-     slots) and of the first round's `rank_interval_sort` (four int32
-     and four int64 planes); `place_received` of what the redistribute
-     delivered; `shard_shift_planes` of the first round; each timed beside
-     its plain version, the chain it replaced (the routing sort, rank and
-     scatters) and its bytes bound; then the edge cases of
-     tests/test_torch_route.py: n around each tile, P from 1 to 32,
-     destinations at and past cap, clamped and out-of-range sources,
-     int32 and int64, windows, h at and past L and n_pad.
+     slots) and of the first round's `rank_interval_sort` (four int32,
+     four int64 and nine int32 planes); `place_received` of what the
+     redistribute delivered; `shard_shift_planes` of the first round; each
+     timed beside its plain version, the chain it replaced (the routing
+     sort, rank and scatters) and its bytes bound; the permutation
+     route and placement at 64, 128, 256 and 512 windows a destination
+     (512: two ranges of library calls); then the edge cases of
+     tests/test_torch_route.py and tests/test_torch_route_caps.py: n
+     around each tile, P from 1 to 1100, buckets past one call's, 9 and 17
+     operands, destinations at and past cap, clamped and out-of-range
+     sources, int32 and int64, windows, placement by window, h at and
+     past L and n_pad.
 Phases 9, 12 and 13 print the seconds of each command or step.
 Phases 7 to 10 each zero the sort kernels' launch counts first and need
 the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 to 14
@@ -786,15 +796,15 @@ def phase1_build_kernels() -> None:
         load()
         return time.perf_counter() - t0
 
-    libraries = (("the radix sort", radix_sort), ("the bitonic sort", bitonic),
-                 ("the radix-partition kernels", radix),
-                 ("the step kernels", steps),
-                 ("the merge-split kernel", merge),
-                 ("the routing kernels", route))
+    libraries = (("the radix sort", radix_sort.load_library),
+                 ("the bitonic sort", bitonic.load_library),
+                 ("the radix-partition kernels", radix.load_library),
+                 ("the step kernels", steps.load_library),
+                 ("the merge-split kernel", merge.load_library),
+                 ("the routing kernels", route.load_library))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
-        times = [pool.submit(timed, module.load_library)
-                 for _, module in libraries]
+        times = [pool.submit(timed, load) for _, load in libraries]
         for (what, _), t in zip(libraries, times):
             say(f"phase 1: built and loaded {what} in {t.result():.2f} s")
     say(f"phase 1: {len(libraries)} libraries built side by side in "
@@ -1560,6 +1570,7 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     the multi-device layer's surface."""
     import tempfile
     import torch
+    import stringsearch_torch as st
     from stringsearch_torch import NotSorted, oracle
     from stringsearch_torch.harness import fuzz, scaling
     from stringsearch_torch.harness.cli import main as cli
@@ -1745,6 +1756,77 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
     small["compact_fallbacks"] = global_sa.compact_fallbacks
     step("2^20 on eight shards")
 
+    # a round routes fan + 1 operands: past one launch's eight at fan 8
+    # and 9; and 512 shards, past what one library call of the routing
+    # took before (256 buckets)
+    caps = {}
+    data24 = enwik_like(1 << 24)
+    flat24 = st.build_suffix_array(data24, device="cuda").sa.cpu().numpy()
+    for fan in (8, 9):
+        route_counts(zero=True)
+        t0 = time.perf_counter()
+        g = build_global(data24, mesh, fan=fan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = route_counts()
+        check(np.array_equal(g.suffix_array(), flat24),
+              f"the fan-{fan} global SA of 2^24 bytes differs from the "
+              f"flat SA")
+        check(launched["route_partition"] > 0,
+              f"the fan-{fan} build launched no route_partition")
+        caps[f"fan_{fan}"] = {"wall_s": wall, "rounds_run": g.rounds_run,
+                              "route_launches": launched}
+        say(f"phase 13: build_global(fan={fan}) on 2^24 bytes, {shards} "
+            f"shards: {wall:.4f} s (first), rounds_run {g.rounds_run}, "
+            f"routing launches {launched}; SA equal to the flat SA [{card}]")
+        del g
+    step("fan 8 and 9 on four shards at 2^24")
+    # 512 shards where the pairs' capacity holds: the routes run through
+    # the kernels, none falls back
+    route_counts(zero=True)
+    fell = Counter(distsort.fallbacks)
+    t0 = time.perf_counter()
+    g = build_global(data24, make_mesh(devices=[cuda] * 512))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = route_counts()
+    fell = dict(Counter(distsort.fallbacks) - fell)
+    check(np.array_equal(g.suffix_array(), flat24),
+          "the 512-shard global SA of 2^24 bytes differs from the flat SA")
+    check(fell.get("redistribute", 0) == 0,
+          f"the 512-shard build at 2^24 fell back: {fell}")
+    check(launched["route_partition"] > 0 and launched["place_received"] > 0,
+          f"the 512-shard build at 2^24 did not route through the kernels: "
+          f"{launched}")
+    caps["shards_512_2^24"] = {"wall_s": wall, "rounds_run": g.rounds_run,
+                               "route_launches": launched, "fallbacks": fell}
+    say(f"phase 13: build_global on 512 shards of 2^24 bytes (L = 2^15, cap "
+        f"{distsort.redistribute_cap(512, 1 << 15)}): {wall:.4f} s, "
+        f"rounds_run {g.rounds_run}, routing launches {launched}, fallbacks "
+        f"{fell}; SA equal to the flat SA [{card}]")
+    del g, data24, flat24
+    step("512 shards at 2^24")
+    data20 = enwik_like(1 << 20, seed=512)
+    route_counts(zero=True)
+    fell = Counter(distsort.fallbacks)
+    t0 = time.perf_counter()
+    g = build_global(data20, make_mesh(devices=[cuda] * 512))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = route_counts()
+    check(np.array_equal(g.suffix_array(), oracle.build(data20)),
+          "the 512-shard global SA of 2^20 bytes differs from the oracle")
+    check(launched["route_partition"] > 0,
+          "the 512-shard build launched no route_partition")
+    fell = dict(Counter(distsort.fallbacks) - fell)
+    caps["shards_512"] = {"wall_s": wall, "rounds_run": g.rounds_run,
+                          "route_launches": launched, "fallbacks": fell}
+    say(f"phase 13: build_global on 512 shards of 2^20 bytes (L = 2048): "
+        f"{wall:.4f} s, rounds_run {g.rounds_run}, routing launches "
+        f"{launched}, fallbacks {fell}; SA equal to oracle.build [{card}]")
+    del g, data20
+    step("512 shards at 2^20")
+
     scale = {}
     for mode in ("global", "partitioned"):
         rows = scaling.measure(1 << 24, reps=2, devices=[cuda] * 8,
@@ -1807,7 +1889,8 @@ def phase13_global(text_np, sa_host, lcs_needles, full_lens,
             "rounds_run": report.rounds, "comm_bytes": report.total_bytes,
             "bytes_moved": moved, "fallbacks": fell_back,
             "compact_fallbacks": compact_fell_back, "queries": queries,
-            "eight_shards_2_20": small, "scaling_2_24": scale,
+            "eight_shards_2_20": small, "route_caps": caps,
+            "scaling_2_24": scale,
             "step_s": steps}
 
 
@@ -2343,7 +2426,7 @@ def _route_edge_cases(gen) -> dict:
     tile = route.ROUTE_TILE
     for n in (0, 1, 2, 33, tile - 1, tile, tile + 1, 8 * tile + 5,
               (1 << 20) + 12345):
-        for p in (1, 2, 3, 4, 8, 32):
+        for p in (1, 2, 3, 4, 8, 32, 512, 1100):
             length = max(n, 1)
             cap = redistribute_cap(p, length)
             for dtype in (i32, i64):
@@ -2360,7 +2443,8 @@ def _route_edge_cases(gen) -> dict:
                         (randint(-length, (p + 1) * length, n, i64), False)):
                     src = src.to(dtype)
                     planes = (src, *payload)
-                    for windows in {1, route.receiver_windows(p, length)}:
+                    for windows in {1, route.receiver_windows(p, length),
+                                    route.MAX_BUCKETS // p + 3}:
                         got = route.route_partition(src, length, p, planes,
                                                     fills, cap, clamp,
                                                     windows)
@@ -2369,6 +2453,47 @@ def _route_edge_cases(gen) -> dict:
                             windows)
                         held("route_partition", [*got[0], got[1]],
                              [*want[0], want[1]])
+    # 9 and 17 operands, mixed widths (two and three launches a call)
+    for n in (tile + 1, (1 << 20) + 12345):
+        for p, windows in ((4, 1), (4, 256), (512, 1)):
+            length = max(n // p, 1)
+            cap = redistribute_cap(p, length)
+            src = randint(-length, (p + 1) * length, n, i32)
+            for count in (9, 17):
+                planes = [src] + [randint(-2**31, 2**31, n,
+                                          i32 if c % 2 else i64)
+                                  for c in range(1, count)]
+                fills = [-1] + [c for c in range(1, count)]
+                for clamp in (False, True):
+                    got = route.route_partition(src, length, p, planes,
+                                                fills, cap, clamp, windows)
+                    want = route.plain_route_partition(
+                        src, length, p, planes, fills, cap, clamp, windows)
+                    held("route_partition", [*got[0], got[1]],
+                         [*want[0], want[1]])
+    # the placement of what a permutation route by windows delivers
+    for p in (2, 4, 8):
+        for length in (1000, route.PLACE_TILE + 3, (1 << 20) + 7):
+            cap = redistribute_cap(p, length)
+            for dtype in (i32, i64):
+                perm = torch.randperm(p * length, generator=gen).to(dtype)
+                vals = randint(-2**62, 2**62, p * length, i64)
+                for windows in sorted({1, 4, route.receiver_windows(
+                        p, length, 8), 2 * route.MAX_BUCKETS // p}):
+                    sends = [route.route_partition(
+                        g, length, p, (g, v, v.to(i32)), (-1, 0, 0), cap,
+                        False, windows)[0]
+                        for g, v in zip(perm.to("cuda").view(p, length),
+                                        vals.view(p, length))]
+                    recv = [torch.cat([sends[s][k][p - 1]
+                                       for s in range(p)]).view(p, cap)
+                            for k in range(3)]
+                    del sends
+                    held("place_received",
+                         route.place_received(recv[0], recv[1:], length,
+                                              windows),
+                         route.plain_place_received(recv[0], recv[1:],
+                                                    length))
     for p in (2, 4, 8):
         for length in (1, 1000, route.PLACE_TILE + 3, (1 << 20) + 7):
             cap = redistribute_cap(p, length)
@@ -2430,7 +2555,8 @@ def phase17_route(text_np, card: str) -> dict:
     """The global build's four routing and placement kernels against their
     plain versions on the operands of phase 13's build (shard 1 of four,
     L = 2^26, and the last shard where its edge differs), and on their
-    edge cases, with times. Returns one report per kernel."""
+    edge cases, with times; the permutation route and placement in a
+    sweep of the windows a destination. Returns one report per kernel."""
     import torch
     from stringsearch_torch.ops import route, steps
     from stringsearch_torch.ops.bitonic import device_sort, plain_sort
@@ -2450,6 +2576,7 @@ def phase17_route(text_np, card: str) -> dict:
     text = torch.from_numpy(text_np.copy()).to("cuda")
     chunks = list(text.view(p, length))
     reports = {name: {"shapes": []} for name, _ in ROUTE_KERNELS}
+    reports["route_partition"]["window_sweep"] = []
 
     def held(kernel, shape, got, want, fn, plain, nbytes, replaced=None):
         """Kernel against plain, tolerance 0; times of the kernel, the
@@ -2509,30 +2636,72 @@ def phase17_route(text_np, card: str) -> dict:
          lambda: redistribute(1, plain_sort), length * 8 + 2 * p * cap * 4,
          replaced=lambda: redistribute(1, device_sort, 2, 1))
     del got, want
-    # what shard 1 receives, and its placement
+
+    def received(w):
+        """What shard 1 receives of the redistribute by w windows."""
+        sends = [redistribute(me, windows=w)[0] for me in range(p)]
+        got = (coll.all_to_all([s[0] for s in sends])[1],
+               coll.all_to_all([s[1] for s in sends])[1])
+        del sends
+        return got
+
+    # what shard 1 receives, and its placement; by windows the rows hold
+    # -1 only past their counts, so the function reads the L live entries
+    # of gidx and of the operand and writes the output
+    recv_g, recv = received(windows)
+    held("place_received", f"the initial redistribute, shard 1 of 4, "
+         f"L=2^{LOG2N - 2}, one int32 operand, [4, {cap}] received, "
+         f"{windows} windows",
+         route.place_received(recv_g, (recv,), length, windows),
+         route.plain_place_received(recv_g, (recv,), length),
+         lambda: route.place_received(recv_g, (recv,), length, windows),
+         lambda: route.plain_place_received(recv_g, (recv,), length),
+         length * (recv_g.element_size() + 2 * recv.element_size()))
+    del recv_g, recv
+    torch.cuda.empty_cache()
+
+    # the permutation route at each number of windows a destination (512:
+    # two ranges of library calls), the sum of route and placement as the
+    # build pays it
+    for w in (64, 128, 256, 512):
+        got, want = redistribute(1, windows=w), redistribute(
+            1, plain_sort, windows=w)
+        err = _exact_err([*got[0], got[1]], [*want[0], want[1]])
+        del got, want
+        g1, v1 = received(w)
+        err = max(err, _exact_err(
+            route.place_received(g1, (v1,), length, w),
+            route.plain_place_received(g1, (v1,), length)))
+        check(err == 0, f"the route at {w} windows disagrees with the "
+                        f"plain version")
+        r_ms = cuda_ms(lambda: redistribute(1, windows=w), 10)
+        p_ms = cuda_ms(lambda: route.place_received(g1, (v1,), length, w),
+                       10)
+        del g1, v1
+        torch.cuda.empty_cache()
+        reports["route_partition"]["window_sweep"].append({
+            "windows": w, "buckets": p * w,
+            "route_ms": round(r_ms, 4), "place_ms": round(p_ms, 4),
+            "both_ms": round(r_ms + p_ms, 4), "max_abs_err": err})
+        say(f"phase 17: the permutation route of shard 1, {w} "
+            f"windows a destination ({p * w} buckets): route_partition "
+            f"{r_ms:.4f} ms + place_received {p_ms:.4f} ms = "
+            f"{r_ms + p_ms:.4f} ms, max_abs_err {err} [{card}]")
     sends = [redistribute(me)[0] for me in range(p)]
     recv_g = coll.all_to_all([s[0] for s in sends])
     recv = coll.all_to_all([s[1] for s in sends])
     del sends
-    held("place_received", f"the initial redistribute, shard 1 of 4, "
-         f"L=2^{LOG2N - 2}, one int32 operand, [4, {cap}] received, "
-         f"{windows} windows",
-         route.place_received(recv_g[1], (recv[1],), length),
-         route.plain_place_received(recv_g[1], (recv[1],), length),
-         lambda: route.place_received(recv_g[1], (recv[1],), length),
-         lambda: route.plain_place_received(recv_g[1], (recv[1],), length),
-         p * cap * 8 + length * 4)
-    rank = [route.place_received(recv_g[me], (recv[me],), length)[0]
-            for me in range(p)]
+    rank = [route.place_received(recv_g[me], (recv[me],), length,
+                                 windows)[0] for me in range(p)]
     del recv_g, recv, gidx_s, rank_s
     torch.cuda.empty_cache()
 
     # the first round's shifted planes (h = depth, fan 3): shards 1 and 3
     hs = [k * depth for k in range(1, fan)]
     for me in (1, p - 1):
-        windows = [(h, rank[me], rank[me + 1] if me + 1 < p else None)
-                   for h in hs]
-        args = (windows, length, me * length, p * length, i32,
+        shifts = [(h, rank[me], rank[me + 1] if me + 1 < p else None)
+                  for h in hs]
+        args = (shifts, length, me * length, p * length, i32,
                 rank[me].device)
         held("shard_shift_planes", f"the first round, shard {me} of 4, "
              f"L=2^{LOG2N - 2}, h {hs}",
@@ -2542,31 +2711,32 @@ def phase17_route(text_np, card: str) -> dict:
              lambda: steps.plain_shard_shift_planes(*args),
              (2 * len(hs) + 1) * 4 * length)
     # its rank_interval_sort route: shard 1's four operands, int32 and
-    # int64
+    # int64, then nine (a fan-8 round's width: two launches)
     shifted = steps.shard_shift_planes(
         [(h, rank[1], rank[2]) for h in hs], length, length, p * length, i32,
         rank[1].device)
     operands = (rank[1], *shifted)
     del rank
     torch.cuda.empty_cache()
-    for idx in (i32, torch.int64):
-        ops = tuple(t.to(idx) for t in operands)
+    for idx, width in ((i32, 4), (torch.int64, 4), (i32, 9)):
+        ops = tuple(t.to(idx) for t in (operands * 3)[:width])
         sent = torch.iinfo(idx).max
+        fills = (sent,) + (0,) * (width - 1)
 
-        def interval(sort=None, ops=ops, sent=sent):
-            args = (ops[0], length, p, ops, (sent, 0, 0, 0), cap, True)
+        def interval(sort=None, ops=ops, fills=fills):
+            args = (ops[0], length, p, ops, fills, cap, True)
             if sort is None:
                 return route.route_partition(*args)
             return route.plain_route_partition(*args, sort=sort)
 
         got, want = interval(), interval(plain_sort)
-        width = ops[0].element_size()
+        size = ops[0].element_size()
         held("route_partition", f"the first round's rank_interval_sort, "
-             f"shard 1 of 4, L=2^{LOG2N - 2}, 4 "
+             f"shard 1 of 4, L=2^{LOG2N - 2}, {width} "
              f"{str(idx).split('.')[-1]} operands, cap {cap}",
              [*got[0], got[1]], [*want[0], want[1]], interval,
              lambda: interval(plain_sort),
-             length * 4 * width + p * cap * 4 * width,
+             length * width * size + p * cap * width * size,
              replaced=lambda: interval(device_sort))
         del got, want, ops
         torch.cuda.empty_cache()
@@ -2831,6 +3001,8 @@ def main() -> int:
             "timed_shape": head["shape"],
             "shapes": rep["shapes"],
             "edge_cases": rep["edge_cases"],
+            **({"window_sweep": rep["window_sweep"]}
+               if "window_sweep" in rep else {}),
         })
 
     say(json.dumps({"kernels": [

@@ -55,16 +55,14 @@ route through them (old, new, new, old): the old route merges by a
 (`plain_merge_split` and `plain_shard_head_ranks` on the card, which
 only this harness does), the new one runs `merge_split` and
 `shard_head_ranks`. `route` runs the same build in the same turns
-against the route before the global build's routing and placement
-kernels: the old route sorts each shard by destination before its
-all_to_all, ranks and scatters into the send buffers, scatters on
-receipt and concatenates the packed and shifted planes
-(`plain_route_partition`, `plain_place_received`,
-`plain_shard_pack_keys` and `plain_shard_shift_planes` on the card,
-which only this harness does), the new one launches `route_partition`,
-`place_received`, `shard_pack_keys` and `shard_shift_planes`; then the
-permutation route of one shard alone (`route_partition`, its kernels by
-name, and `place_received`) at each number of windows a destination.
+against the routing and placement kernels of an earlier design
+(`harness/route_variants.py`'s `earlier`, whose source the caller puts
+at its EARLIER_SOURCE: at commit 4521b69 tiles of 4096, at most 256
+buckets, the placement a scatter from registers, each with its own
+windows a destination) in place of `route_partition` and
+`place_received`; then the permutation route of one shard alone
+(`route_partition` and `place_received`, their kernels by name) at each
+number of windows a destination, the earlier design beside them.
 `bitonic`
 runs the flat build at 2^28 with every sort
 on the bitonic kernel in turns with the radix sort (radix, bitonic,
@@ -343,28 +341,13 @@ def profile_merge(log2n: int = 28, shards: int = 4) -> None:
         torch.cuda.empty_cache()
 
 
-def _old_route(src, length, p, planes, fills, cap, clamp=False, windows=1):
-    """A shard's send buffers as before `route_partition`: a `device_sort`
-    by destination (by (destination, gidx) for the permutation route,
-    whatever the windows; looked up in `distsort` at the call, so `profile`
-    times it as a sort), the `searchsorted` rank and a scatter an
-    operand."""
-    from stringsearch_torch.parallel import distsort
-
-    return route.plain_route_partition(src, length, p, planes, fills, cap,
-                                       clamp, sort=distsort.device_sort,
-                                       num_keys=1 if clamp else 2)
-
-
 def profile_route(log2n: int = 28, shards: int = 4) -> None:
     """The global build at 2^log2n on `shards` shards of one card, in
-    turns: the old route (the routing sorts, `searchsorted` ranks and
-    scatters of the two all_to_all routes, the receive scatter, the
-    concatenations of the initial packing and of the shifted ranks: the
-    plain versions of the four kernels, on the card), the new
-    (`route_partition`, `place_received`, `shard_pack_keys`,
-    `shard_shift_planes`), the new, the old. The four kernels' launches of
-    each turn are printed with the rest."""
+    turns: the routing and placement kernels of the earlier design
+    (`route_variants.EARLIER_SOURCE`, with its own windows a destination),
+    the kernels as built, as built, the earlier design. The two functions' launches
+    of each turn are printed with the rest."""
+    from stringsearch_torch.harness import route_variants
     from stringsearch_torch.parallel import distsort, gather, global_sa
     from stringsearch_torch.parallel.mesh import make_mesh
 
@@ -372,33 +355,31 @@ def profile_route(log2n: int = 28, shards: int = 4) -> None:
     text = torch.from_numpy(
         np.frombuffer(enwik_like(n), dtype=np.uint8).copy()).to("cuda")
     mesh = make_mesh(devices=[torch.device("cuda")] * shards)
-    names = (("route_partition", distsort, route),
-             ("place_received", distsort, route),
-             ("shard_pack_keys", global_sa, steps),
-             ("shard_shift_planes", global_sa, steps))
+    names = ("route_partition", "place_received", "receiver_windows")
     routes = {
-        "new route": [getattr(module, name) for name, module, _ in names],
-        "old route": [_old_route, route.plain_place_received,
-                      steps.plain_shard_pack_keys,
-                      steps.plain_shard_shift_planes]}
+        "kernels": [getattr(distsort, name) for name in names],
+        "earlier kernels": [route_variants.earlier_route,
+                            route_variants.earlier_place,
+                            route_variants.earlier_windows]}
 
     def take(label):
-        for (name, module, _), fn in zip(names, routes[label]):
-            setattr(module, name, fn)
+        for name, fn in zip(names, routes[label]):
+            setattr(distsort, name, fn)
 
-    for turn, label in enumerate(("old route", "new route", "new route",
-                                  "old route"), 1):
+    route_variants.earlier_library()
+    for turn, label in enumerate(("earlier kernels", "kernels", "kernels",
+                                  "earlier kernels"), 1):
         take(label)
-        before = {name: owner.launches[name] for name, _, owner in names}
+        before = dict(route.launches)
         try:
             profile(f"2^{log2n} global build, {shards} shards of one card, "
                     f"{label} (turn {turn})",
                     lambda: global_sa.build_global(text, mesh),
                     modules=(distsort, gather, global_sa), nbytes=n)
         finally:
-            take("new route")
-        launched = {name: owner.launches[name] - before[name]
-                    for name, _, owner in names}
+            take("kernels")
+        launched = {name: route.launches[name] - before[name]
+                    for name in before}
         print(f"   routing and placement launches over the turn's six "
               f"builds: {launched}", flush=True)
         torch.cuda.empty_cache()
@@ -408,7 +389,9 @@ def route_windows(log2n: int = 28, shards: int = 4) -> None:
     """The permutation route of one shard of the global build at 2^log2n
     on `shards` shards: `route_partition` (its kernels timed by name) and
     the receiver's `place_received` with each number of windows a
-    destination, on a random permutation."""
+    destination, on a random permutation; the earlier design at its own
+    windows beside them."""
+    from stringsearch_torch.harness import route_variants
     from stringsearch_torch.parallel import collectives as coll
     from stringsearch_torch.parallel.distsort import redistribute_cap
 
@@ -432,25 +415,31 @@ def route_windows(log2n: int = 28, shards: int = 4) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    for w in sorted({1, 8, 16, 32, route.receiver_windows(p, length)}):
-        def send(me, w=w):
-            return route.route_partition(gidx[me], length, p,
-                                         (gidx[me], vals[me]), (-1, 0), cap,
-                                         False, w)
+    cases = [("earlier", w, route_variants.earlier_route,
+              route_variants.earlier_place)
+             for w in (16, route_variants.earlier_windows(p, length))]
+    cases += [("as built", w, route.route_partition, route.place_received)
+              for w in sorted({16, 64, 128, 256, 512,
+                               route.receiver_windows(p, length)})]
+    for label, w, send_fn, place_fn in cases:
+        def send(me, w=w, send_fn=send_fn):
+            return send_fn(gidx[me], length, p, (gidx[me], vals[me]),
+                           (-1, 0), cap, False, w)
         sends = [send(me)[0] for me in range(p)]
         recv_g = coll.all_to_all([s[0] for s in sends])
         recv = coll.all_to_all([s[1] for s in sends])
         del sends
         r_ms = ms(lambda: send(1))
-        p_ms = ms(lambda: route.place_received(recv_g[1], (recv[1],),
-                                               length))
+        p_ms = ms(lambda: place_fn(recv_g[1], (recv[1],), length, w))
         per = _kernel_sums(lambda: send(1))
+        per.update(_kernel_sums(
+            lambda: place_fn(recv_g[1], (recv[1],), length, w)))
         kernels = {name: round(t, 4) for name, (t, _) in per.items()
-                   if name.startswith("route_")}
+                   if name.startswith(("route_", "place_"))}
         print(f"2^{log2n} / {p} shards, the permutation route of shard 1, "
-              f"{w} windows a destination: route_partition {r_ms:.4f} ms "
-              f"({kernels}), place_received {p_ms:.4f} ms, both "
-              f"{r_ms + p_ms:.4f} ms", flush=True)
+              f"{label}, {w} windows a destination: route_partition "
+              f"{r_ms:.4f} ms, place_received {p_ms:.4f} ms, both "
+              f"{r_ms + p_ms:.4f} ms ({kernels})", flush=True)
         del recv_g, recv
 
 

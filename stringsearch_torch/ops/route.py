@@ -13,17 +13,24 @@ jitted programs. None of it replaces a Pallas kernel.
 
   * `route_partition`: the send buffers of one shard, by a stable
     counting partition by destination (and by window of the destination's
-    slots, where the receiver scatters) in `csrc/route.cu`, with the
+    slots, where the receiver places) in `csrc/route.cu`, with the
     overflow flag and the fill of the empty slots;
-  * `place_received`: the receive side's scatter in one pass.
+  * `place_received`: the receive side, one window of the receiver's
+    slots a thread block cluster, assembled in shared memory and written
+    once.
+
+Neither function has a limit of its own on the card. One library call
+takes at most MAX_BUCKETS buckets (destinations times windows) and
+MAX_PLANES operands; the wrappers make their calls as `launch_plan` says:
+a range of buckets at a time and, in each, a group of operands at a time,
+the range's first call running its count and scan for the later ones.
 
 CPU tensors go to the plain versions, which are the chain of PyTorch ops
 the distributed sort ran before (`plain_route_partition` sorts by
 destination with `device_sort`, which is stable); CUDA tensors to the
 kernels, which raise on a type, shape or launch error. There is no other
-route and no fallback. `harness/profile_build.py route` puts the plain
-versions on the card, in turns with the kernels; nothing else runs them
-there.
+route and no fallback. Only the kernels' checks (`chip_smoke.py` phase
+17, the `cuda` tests) put the plain versions on the card.
 """
 
 from __future__ import annotations
@@ -39,17 +46,18 @@ from stringsearch_torch.ops import _build
 _SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "route.cu")
 _I32 = torch.int32
 _IDX = (torch.int32, torch.int64)
-# kMaxBuckets and kMaxPlanes of csrc/route.cu: destinations times windows,
-# and operands, of one call
-MAX_BUCKETS = 256
+# kMaxBuckets and kMaxPlanes of csrc/route.cu: the buckets (destinations
+# times windows) of one library call, and the operands of one launch
+MAX_BUCKETS = 1024
 MAX_PLANES = 8
-# kTile and kPlaceTile of csrc/route.cu: the elements a block of each
-# kernel takes (the tests' edge sizes)
-ROUTE_TILE = 4096
+# kTile and kScatterTile of csrc/route.cu: the elements a block of the
+# partition takes, and the columns a block of the scatter placement takes
+# (the tests' edge sizes)
+ROUTE_TILE = 8192
 PLACE_TILE = 1024
-# the fewest slots of a receiver's output that `receiver_windows` gives a
-# window
-MIN_WINDOW = 16
+# kCluster * kPlaceBytes of csrc/route.cu: the shared memory of one thread
+# block cluster of the window placement, which holds a window
+PLACE_CLUSTER_BYTES = 8 * 128 * 1024
 
 # Kernel launches in this process, by function.
 launches = {"route_partition": 0, "place_received": 0}
@@ -64,36 +72,50 @@ def _load(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     lib.ss_route_partition.argtypes = [
         _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(_P), ctypes.POINTER(_P),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(_P), ctypes.POINTER(_P),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int, ctypes.c_int64, _P, _P, _P]
     lib.ss_place_received.argtypes = [
         _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(_P), ctypes.POINTER(_P),
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, _P]
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(_P), ctypes.POINTER(_P),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, _P, _P]
     for fn in (lib.ss_route_partition, lib.ss_place_received):
         fn.restype = ctypes.c_int
-    lib.ss_route_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
-    lib.ss_route_scratch_bytes.restype = ctypes.c_int64
+    lib.ss_route_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int,
+                                           ctypes.c_int]
+    lib.ss_place_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
+    for fn in (lib.ss_route_scratch_bytes, lib.ss_place_scratch_bytes):
+        fn.restype = ctypes.c_int64
     lib.ss_route_error_string.argtypes = [ctypes.c_int]
     lib.ss_route_error_string.restype = ctypes.c_char_p
+    lib.ss_place_window_slots.argtypes = [ctypes.c_int]
     return lib
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (first call only) and load the kernel library."""
+    """Build (first call only) and load the kernel library; checks that
+    its limits are the ones this module splits by."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _load(_build.build_library(
-                "route", [_SOURCE], [_build.nvcc(), *_build.NVCC_FLAGS]))
+            path = _build.build_library(
+                "route", [_SOURCE], [_build.nvcc(), *_build.NVCC_FLAGS])
+            lib = _load(path)
+            got = (lib.ss_route_max_buckets(), lib.ss_route_max_planes(),
+                   lib.ss_route_tile(), 4 * lib.ss_place_window_slots(4))
+            want = (MAX_BUCKETS, MAX_PLANES, ROUTE_TILE,
+                    PLACE_CLUSTER_BYTES)
+            if got != want:
+                raise RuntimeError(f"{path}: limits {got}, the wrapper "
+                                   f"expects {want}")
+            _lib = lib
         return _lib
 
 
-def _launch(kernel: str, fn: str, device, *args) -> None:
-    """Call `fn` of the library on the current stream of `device` and count
-    the launch under `kernel`. Raises if the launch failed."""
-    lib = load_library()
+def _call(lib, fn: str, device, *args) -> None:
+    """Call `fn` of `lib` on the current stream of `device`. Raises if a
+    launch failed."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
@@ -101,7 +123,6 @@ def _launch(kernel: str, fn: str, device, *args) -> None:
         raise RuntimeError(f"{fn} launch failed: "
                            f"{lib.ss_route_error_string(rc).decode()} "
                            f"(code {rc})")
-    launches[kernel] += 1
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
@@ -127,17 +148,36 @@ def seg_rank(dest_s: torch.Tensor) -> torch.Tensor:
     return i - torch.searchsorted(dest_s, dest_s, side="left")
 
 
+def launch_plan(p: int, windows: int, planes: int) -> list:
+    """The library calls the wrappers make on the card: a range of at most
+    MAX_BUCKETS consecutive buckets of the p * windows at a time, and in
+    each range one call a group of at most MAX_PLANES operands, the first
+    running the range's count and scan (`place_received`: p = windows = 1,
+    the first call finding the rows' runs). Returns [(bucket0, buckets,
+    [(first operand, operands), ...]), ...]; one call a pair of a range
+    and a group."""
+    groups = [(c, min(MAX_PLANES, planes - c))
+              for c in range(0, planes, MAX_PLANES)]
+    total = p * windows
+    return [(b, min(MAX_BUCKETS, total - b), groups)
+            for b in range(0, total, MAX_BUCKETS)]
+
+
 # ---------------------------------------------------------------------------
 # route_partition
 # ---------------------------------------------------------------------------
 
 
-def receiver_windows(p: int, length: int) -> int:
+def receiver_windows(p: int, length: int, width: int = 4) -> int:
     """The windows a destination of `route_partition` for a receiver that
-    scatters into [length] slots: the largest power of two that keeps p
-    times it within MAX_BUCKETS and a window at MIN_WINDOW slots or more."""
+    places into [length] slots of `width`-byte elements: the fewest (a power
+    of two) whose window fits one cluster of the window placement
+    (PLACE_CLUSTER_BYTES), but no more than keep p times them within
+    MAX_BUCKETS, one range of library calls. Past that the window is wider
+    than a cluster and the placement scatters."""
+    slots = PLACE_CLUSTER_BYTES // width
     w = 1
-    while 2 * w * p <= MAX_BUCKETS and length // (2 * w) >= MIN_WINDOW:
+    while -(-length // w) > slots and 2 * w * p <= MAX_BUCKETS:
         w *= 2
     return w
 
@@ -221,10 +261,12 @@ def route_partition(src, length: int, p: int, planes, fills, cap: int,
     inside one: a stable partition by (d, w). With one window it is a
     stable partition by destination, equal to a stable sort by d followed
     by the rank inside each destination, as the JAX package routes; more
-    windows give a receiver that scatters to src % length runs of nearby
-    slots. Slots past a row's count hold the operand's fill. `planes` are
-    [n] int32 or int64 tensors on src's device (src itself may be one),
-    `fills` one value each. Returns (buffers, over): the buffers, each
+    windows let the receiver's `place_received` take one window of its
+    slots at a time. Slots past a row's count hold the operand's fill.
+    `planes` are [n] int32 or int64 tensors on src's device (src itself
+    may be one), any number of them, `fills` one value each; p and windows
+    are any positive counts (the card takes them in the calls and
+    launches of `launch_plan`). Returns (buffers, over): the buffers, each
     [p, cap] of its operand's dtype, and over, a 0-d int32 tensor on src's
     device, 1 where a row holds more than cap (what lies past cap is
     dropped) or, without `clamp`, an element's destination lies outside
@@ -235,33 +277,47 @@ def route_partition(src, length: int, p: int, planes, fills, cap: int,
     if not _on_cuda(src, "src"):
         return plain_route_partition(src, length, p, planes, fills, cap,
                                      clamp, windows)
-    if p * windows > MAX_BUCKETS or len(planes) > MAX_PLANES:
-        raise ValueError(f"route_partition takes at most {MAX_BUCKETS} "
-                         f"destinations times windows and {MAX_PLANES} "
-                         f"operands on CUDA, got {p * windows} and "
-                         f"{len(planes)}")
+    sends, over, calls = launch_route(load_library(), src, length, p,
+                                      planes, fills, cap, clamp, windows)
+    launches["route_partition"] += calls
+    return sends, over
+
+
+def launch_route(lib, src, length: int, p: int, planes, fills, cap: int,
+                 clamp: bool, windows: int) -> tuple:
+    """`route_partition` on the card through `lib` (this module's library
+    or another build of `csrc/route.cu`'s interface): the library calls of
+    `launch_plan`, on one scratch. Returns (buffers, over, library
+    calls)."""
     n = src.shape[0]
-    if n >= 1 << 31:
-        raise ValueError("route_partition takes n < 2^31 on CUDA")
+    if n >= 1 << 31 or p * windows >= 1 << 31:
+        raise ValueError("route_partition takes n < 2^31 and fewer than "
+                         "2^31 buckets on CUDA")
     src = src.contiguous()
     planes = [t.contiguous() for t in planes]
     device = src.device
     sends = [torch.empty((p, cap), dtype=t.dtype, device=device)
              for t in planes]
     over = torch.empty((), dtype=_I32, device=device)
-    lib = load_library()
-    # the launch zeroes the flag itself
+    plan = launch_plan(p, windows, len(planes))
+    # the first call zeroes the flag and the row counts in the scratch
     scratch = torch.empty(
-        (lib.ss_route_scratch_bytes(n, p * windows) // 4,), dtype=_I32,
+        (lib.ss_route_scratch_bytes(n, plan[0][1], p) // 4,), dtype=_I32,
         device=device)
-    ins, widths = _arrays(planes)
-    outs, _ = _arrays(sends)
-    _launch("route_partition", "ss_route_partition", device, src.data_ptr(),
-            src.element_size(), n, length, p, windows, int(bool(clamp)), ins,
-            outs, widths,
-            (ctypes.c_int64 * len(fills))(*(int(f) for f in fills)),
-            len(planes), cap, over.data_ptr(), scratch.data_ptr())
-    return tuple(sends), over
+    calls = 0
+    for bucket0, buckets, groups in plan:
+        for c0, count in groups:
+            ins, widths = _arrays(planes[c0:c0 + count])
+            outs, _ = _arrays(sends[c0:c0 + count])
+            values = (ctypes.c_int64 * count)(
+                *(int(f) for f in fills[c0:c0 + count]))
+            _call(lib, "ss_route_partition", device, src.data_ptr(),
+                  src.element_size(), n, length, p, windows,
+                  int(bool(clamp)), bucket0, buckets, int(c0 == 0), ins,
+                  outs, widths, values, count, cap, over.data_ptr(),
+                  scratch.data_ptr())
+            calls += 1
+    return tuple(sends), over, calls
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +325,7 @@ def route_partition(src, length: int, p: int, planes, fills, cap: int,
 # ---------------------------------------------------------------------------
 
 
-def _check_place(recv_g, recvs, length: int) -> tuple:
+def _check_place(recv_g, recvs, length: int, windows: int) -> tuple:
     recvs = tuple(recvs)
     if recv_g.dtype not in _IDX:
         raise TypeError(f"recv_g must be int32 or int64, got {recv_g.dtype}")
@@ -282,17 +338,20 @@ def _check_place(recv_g, recvs, length: int) -> tuple:
         if t.shape != recv_g.shape or t.device != recv_g.device:
             raise ValueError("the received operands must share recv_g's "
                              "shape and device")
-    if length < 1:
-        raise ValueError(f"length must be positive, got {length}")
+    if length < 1 or windows < 1:
+        raise ValueError(f"length and windows must be positive, got "
+                         f"{length} and {windows}")
     return recvs
 
 
-def plain_place_received(recv_g, recvs, length: int) -> tuple:
+def plain_place_received(recv_g, recvs, length: int,
+                         windows: int = 1) -> tuple:
     """`place_received` as the chain of PyTorch ops the redistribute ran
     before, on recv_g's device: the offsets `recv_g % length` with a drop
     slot `length` for the empty entries, and one scatter an operand into
-    an [length + 1] buffer of zeros."""
-    recvs = _check_place(recv_g, recvs, length)
+    an [length + 1] buffer of zeros. The rows' order does not matter to
+    it, so it reads nothing of `windows`."""
+    recvs = _check_place(recv_g, recvs, length, windows)
     off = torch.where(recv_g >= 0, recv_g % length, length).reshape(-1)
     outs = []
     for recv in recvs:
@@ -302,31 +361,49 @@ def plain_place_received(recv_g, recvs, length: int) -> tuple:
     return tuple(outs)
 
 
-def place_received(recv_g, recvs, length: int) -> tuple:
+def place_received(recv_g, recvs, length: int, windows: int = 1) -> tuple:
     """The receive side of the permutation route: out[recv_g % length] =
     recv for every entry whose recv_g is >= 0, for each received operand
-    (each of recv_g's shape, int32 or int64). Returns one [length] tensor
-    an operand, zero where no entry lands. The entries' targets are
-    expected to be distinct (the received share of a permutation). A
-    [rows, cols] recv_g (the all_to_all's rows, one a sender) is read a
-    column range of every row at a time: rows that `route_partition`
-    ordered by window write nearby slots together."""
-    recvs = _check_place(recv_g, recvs, length)
+    (each of recv_g's shape, int32 or int64, any number of them). Returns
+    one [length] tensor an operand, zero where no entry lands. The
+    entries' targets are expected to be distinct (the received share of a
+    permutation). A [rows, cols] recv_g holds the all_to_all's rows, one a
+    sender. With `windows` > 1 each row must be what `route_partition`
+    sent with that many windows: ordered by window of recv_g % length
+    (ceil(length / windows) slots each), -1 only past the row's count; the
+    kernel then places one window of slots a thread block cluster, from
+    the run of that window in each row. With one window the rows may be
+    in any order."""
+    recvs = _check_place(recv_g, recvs, length, windows)
     if not _on_cuda(recv_g, "recv_g"):
-        return plain_place_received(recv_g, recvs, length)
-    if len(recvs) > MAX_PLANES:
-        raise ValueError(f"place_received takes at most {MAX_PLANES} "
-                         f"operands on CUDA, got {len(recvs)}")
+        return plain_place_received(recv_g, recvs, length, windows)
+    outs, calls = launch_place(load_library(), recv_g, recvs, length,
+                               windows)
+    launches["place_received"] += calls
+    return outs
+
+
+def launch_place(lib, recv_g, recvs, length: int, windows: int) -> tuple:
+    """`place_received` on the card through `lib` (this module's library
+    or another build of `csrc/route.cu`'s interface): one library call a
+    group of operands of `launch_plan`. Returns (outputs, library
+    calls)."""
     recv_g = recv_g.contiguous()
     recvs = [t.contiguous() for t in recvs]
-    outs = [torch.empty((length,), dtype=t.dtype, device=recv_g.device)
+    device = recv_g.device
+    outs = [torch.empty((length,), dtype=t.dtype, device=device)
             for t in recvs]
-    ins, widths = _arrays(recvs)
-    dst, _ = _arrays(outs)
-    # a [rows, cols] buffer: a block takes the same columns of every row
+    # a [rows, cols] buffer: each row is one sender's
     rows = recv_g.shape[0] if recv_g.dim() == 2 else 1
-    _launch("place_received", "ss_place_received", recv_g.device,
-            recv_g.data_ptr(), recv_g.element_size(), rows,
-            recv_g.numel() // max(rows, 1), length, ins, dst, widths,
-            len(recvs))
-    return tuple(outs)
+    scratch = torch.empty(
+        (max(lib.ss_place_scratch_bytes(rows, windows), 8) // 8,),
+        dtype=torch.int64, device=device)
+    (_bucket0, _buckets, groups), = launch_plan(1, 1, len(recvs))
+    for c0, count in groups:
+        ins, widths = _arrays(recvs[c0:c0 + count])
+        dst, _ = _arrays(outs[c0:c0 + count])
+        _call(lib, "ss_place_received", device, recv_g.data_ptr(),
+              recv_g.element_size(), rows, recv_g.numel() // max(rows, 1),
+              length, windows, int(c0 == 0), ins, dst, widths, count,
+              scratch.data_ptr())
+    return tuple(outs), len(groups)

@@ -39,7 +39,8 @@ What differs from the JAX package, and why:
     `ops/route.py:route_partition` (on CUDA one pass of a stable counting
     partition by destination) where the JAX package sorts by destination
     and scatters, and `redistribute_permutation`'s receivers place with
-    `place_received` (one scatter pass). `rank_interval_sort`'s buffers
+    `place_received` (a window of slots at a time; neither function has
+    a limit on the operands or the shards). `rank_interval_sort`'s buffers
     equal a stable sort by destination element for element;
     `redistribute_permutation`'s order each (source, destination) pair
     by window of gidx % L, and by source order inside a window, where the
@@ -189,8 +190,9 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
     destination) pair by window of gidx % L (`receiver_windows`) and by
     source order inside a window; the JAX package sorts each pair by
     gidx. The receivers place every element at gidx % L
-    (`place_received`), so the result does not depend on that order, and
-    the pairs' counts, the overflow flag and the bytes sent are the same.
+    (`place_received`, a window at a time), so the result does not depend
+    on that order, and the pairs' counts, the overflow flag and the bytes
+    sent are the same.
     """
     gidx = list(gidx)
     operands = tuple(list(op) for op in operands)
@@ -200,11 +202,13 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
         srt = device_sort((gidx[0],) + _local(operands, 0), 1)
         return tuple([x] for x in srt[1:])
     cap = redistribute_cap(p, length, cap_factor)
-    # each row by window of the receiver's slots, so its scatter writes
-    # nearby slots together
+    # each row by window of the receiver's slots, so that a receiver
+    # places a window at a time
+    windows = receiver_windows(p, length, max(
+        coll.first_local(op).element_size() for op in operands))
     sends, over = _route(gidx, (gidx,) + operands,
                          (-1,) + (0,) * len(operands), length, p, cap, False,
-                         receiver_windows(p, length))
+                         windows)
     if host_flag(over):
         del sends
         fallbacks["redistribute"] += 1
@@ -216,7 +220,7 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
     for _ in operands:
         recv = coll.all_to_all(sends.pop(0))
         outs.append(coll.each(recv, lambda me: place_received(
-            recv_g[me], (recv[me],), length)[0]))
+            recv_g[me], (recv[me],), length, windows)[0]))
         del recv
     return tuple(outs)
 

@@ -213,19 +213,30 @@ def test_the_model_is_the_jax_arithmetic():
 
 
 def test_receiver_windows():
-    """Windows of at least MIN_WINDOW slots, at most MAX_BUCKETS buckets:
-    64 a destination at phase 13's four shards of 2^26, one on tiny
-    shards."""
-    assert route.receiver_windows(4, 1 << 26) == 64
-    assert route.receiver_windows(8, 1 << 26) == 32
-    assert route.receiver_windows(32, 1 << 26) == 8
-    assert route.receiver_windows(4, 1000) == 32
-    assert route.receiver_windows(2, route.MIN_WINDOW) == 1
-    for p in (1, 2, 3, 5, 8):
-        for length in (1, 15, 64, 1000, 1 << 20):
-            w = route.receiver_windows(p, length)
-            assert w & (w - 1) == 0 and p * w <= route.MAX_BUCKETS
-            assert w == 1 or length // w >= route.MIN_WINDOW
+    """The fewest windows (a power of two) whose window fits one cluster of
+    the window placement, with p times them within MAX_BUCKETS: 256 a
+    destination at phase 13's four shards of 2^26, one on short shards
+    and past MAX_BUCKETS / 2 shards."""
+    assert route.receiver_windows(4, 1 << 26) == 256
+    assert route.receiver_windows(4, 1 << 26, 8) == 256
+    assert route.receiver_windows(8, 1 << 26) == 128
+    assert route.receiver_windows(32, 1 << 26) == 32
+    assert route.receiver_windows(4, 1 << 24, 8) == 128
+    assert route.receiver_windows(4, 1000) == 1
+    assert route.receiver_windows(512, 1 << 26) == 2
+    assert route.receiver_windows(1024, 1 << 26) == 1
+    for p in (1, 2, 3, 5, 8, 300, 600):
+        for length in (1, 15, 64, 1000, 1 << 20, 1 << 26):
+            for width in (4, 8):
+                slots = route.PLACE_CLUSTER_BYTES // width
+                w = route.receiver_windows(p, length, width)
+                assert w & (w - 1) == 0
+                assert w == 1 or p * w <= route.MAX_BUCKETS
+                # it fits, or doubling would leave one library call
+                assert -(-length // w) <= slots or \
+                    2 * w * p > route.MAX_BUCKETS
+                # the fewest that fit
+                assert w == 1 or -(-length // (w // 2)) > slots
 
 
 def test_windows_order_each_row_by_window():
