@@ -42,6 +42,11 @@ What differs from the JAX package, and why:
     owns slots [p * chunk, (p + 1) * chunk)); every test for "past the
     end" is a test against the END OF THE SUFFIX'S CHUNK. The flat build
     is the case of one chunk (`chunk == n`), with the same sorts as ever.
+The flat build records its phases as spans (`harness/tracing.py`, on only
+under `torch.profiler`): `doubling.build`, `doubling.initial`, each
+`doubling.round`, each `doubling.invert`, `doubling.compact` and inside
+it `doubling.extract`, `doubling.compact_round` and `doubling.shrink`,
+and `doubling.wait` around each read of a tied count.
 Indexes are int32 (n < 2^31) unless `idx=torch.int64`: then positions,
 ranks and the SA are int64, and the packed text keys stay int32. On CUDA
 `device_sort` sorts an int64 plane as two int32 planes.
@@ -57,6 +62,7 @@ from stringsearch_torch.core.types import (
     SuffixArray,
     as_text_tensor,
 )
+from stringsearch_torch.harness.tracing import span, wait_span
 from stringsearch_torch.ops.bitonic import device_sort
 from stringsearch_torch.ops.steps import (
     BIAS as _BIAS,
@@ -110,9 +116,18 @@ def _pack4_keys(text: torch.Tensor, depth: int, chunk=None) -> tuple:
 
 def _scatter_to_text_order(sa, rank_s):
     """rank[sa] = rank_s as a 1-key sort: sorting (sa, rank_s) by sa places
-    rank_s[j] at text position sa[j]."""
-    _, rank = device_sort((sa, rank_s), num_keys=1)
+    rank_s[j] at text position sa[j]. The span `doubling.invert` holds the
+    operation, whatever implements it."""
+    with span("doubling.invert"):
+        _, rank = device_sort((sa, rank_s), num_keys=1)
     return rank
+
+
+def _read_count(count_t) -> int:
+    """The tied count on the host: the round loop's one host wait, in the
+    span `doubling.wait`."""
+    with wait_span("doubling.wait"):
+        return int(count_t)
 
 
 def _shift_ranks(rank, h: int, chunk=None):
@@ -151,6 +166,17 @@ def _initial_sorted(text, depth: int = 24, chunk=None, idx=_I32):
     out = device_sort(planes, num_keys=len(planes) - 1)
     del planes
     return _ranks_sorted_only(out)
+
+
+def _initial(sort):
+    """sort(), an initial sort that returns (sa_s, rank_s, count_tied),
+    with its tied count read on the host, in the span `doubling.initial`
+    (attribute `tied`). Returns (sa_s, rank_s, count)."""
+    with span("doubling.initial") as sp:
+        sa_s, rank_s, count = sort()
+        count = _read_count(count)
+        sp.set(tied=count)
+    return sa_s, rank_s, count
 
 
 def _initial_full(text, depth: int = 24):
@@ -276,10 +302,11 @@ def _next_h(h: int, chunk: int, fan: int) -> int:
     return min(min(h, chunk // fan + 1) * fan, chunk)
 
 
-def _refine(sa_s0, rank_s0, count0, h0: int, levels, fan: int,
+def _refine(sa_s0, rank_s0, count0: int, h0: int, levels, fan: int,
             extract: str = "auto", adaptive: bool = True,
             want_isa: bool = True, chunk=None):
-    """Doubling rounds + cascaded compaction from a sorted initial state.
+    """Doubling rounds + cascaded compaction from a sorted initial state
+    with `count0` positions tied (a host int).
 
     Returns (sa, isa), or (sa, sa) when `want_isa` is False and the build
     resolved in the full rounds. The state between full rounds is sorted
@@ -288,6 +315,13 @@ def _refine(sa_s0, rank_s0, count0, h0: int, levels, fan: int,
     `extract` = "sort" | "topk" | "auto" (top-k for capacities <= n/32).
     `adaptive` extracts straight into the deepest level whose capacity
     holds the live tied count.
+
+    Spans (`harness/tracing.py`): `doubling.round` a full round (the
+    elements `n` its sort carries, the tied count `tied_in` going in and
+    `tied_out` coming out), `doubling.compact` the compaction stage from
+    its opening invert on, and inside it `doubling.extract`,
+    `doubling.compact_round` (the capacity `m` its sort carries,
+    `tied_in`, `tied_out`) and `doubling.shrink`.
     """
     n = sa_s0.shape[0]
     chunk = _chunk_len(n, chunk)
@@ -296,15 +330,17 @@ def _refine(sa_s0, rank_s0, count0, h0: int, levels, fan: int,
     for i in range(1, len(caps)):
         caps[i] = min(caps[i], caps[i - 1])
 
-    sa_s, rank_s, h, count = sa_s0, rank_s0, h0, int(count0)
+    sa_s, rank_s, h, count = sa_s0, rank_s0, h0, count0
     # no `h < chunk` guard: short suffixes may need the h == chunk marker
     # round to split, and that round always zeroes the count
     while count > caps[0]:
-        rank = _scatter_to_text_order(sa_s, rank_s)  # predecessor's invert
-        del sa_s, rank_s
-        sa_s, rank_s, count_t = _full_round_sorted(rank, h, fan, chunk)
-        del rank
-        count = int(count_t)
+        with span("doubling.round", n=n, tied_in=count) as sp:
+            rank = _scatter_to_text_order(sa_s, rank_s)  # predecessor's
+            del sa_s, rank_s
+            sa_s, rank_s, count_t = _full_round_sorted(rank, h, fan, chunk)
+            del rank
+            count = _read_count(count_t)
+            sp.set(tied_out=count)
         h = _next_h(h, chunk, fan)
 
     if count == 0:
@@ -312,11 +348,6 @@ def _refine(sa_s0, rank_s0, count0, h0: int, levels, fan: int,
             return sa_s, _scatter_to_text_order(sa_s, rank_s)
         return sa_s, sa_s
 
-    # the compact rounds' shifted-key gathers read text-order ranks
-    rank = _scatter_to_text_order(sa_s, rank_s)
-    rank_buf = torch.cat([rank, rank.new_zeros((1,))])
-    del rank
-    sa_buf = torch.cat([sa_s, sa_s.new_zeros((1,))])
     # count <= caps[0] here, so the level index is >= 0
     level = 0
     if adaptive and len(caps) > 1:
@@ -324,21 +355,32 @@ def _refine(sa_s0, rank_s0, count0, h0: int, levels, fan: int,
     method = extract
     if method == "auto":
         method = "topk" if caps[level] * 32 <= n else "sort"
-    g, pos = _extract(rank_s, sa_s, caps[level], method)
-    del sa_s, rank_s
+    with span("doubling.compact"):
+        # the compact rounds' shifted-key gathers read text-order ranks
+        rank = _scatter_to_text_order(sa_s, rank_s)
+        rank_buf = torch.cat([rank, rank.new_zeros((1,))])
+        del rank
+        sa_buf = torch.cat([sa_s, sa_s.new_zeros((1,))])
+        with span("doubling.extract"):
+            g, pos = _extract(rank_s, sa_s, caps[level], method)
+        del sa_s, rank_s
 
-    def run_until(limit, g, pos, h, count):
-        while count > limit:
-            g, pos, _, _, count_t = _compact_round(g, pos, rank_buf, sa_buf,
-                                                   h, fan, chunk)
-            count = int(count_t)
-            h = _next_h(h, chunk, fan)
-        return g, pos, h, count
+        def run_until(limit, g, pos, h, count):
+            while count > limit:
+                with span("doubling.compact_round", m=g.shape[0],
+                          tied_in=count) as sp:
+                    g, pos, _, _, count_t = _compact_round(
+                        g, pos, rank_buf, sa_buf, h, fan, chunk)
+                    count = _read_count(count_t)
+                    sp.set(tied_out=count)
+                h = _next_h(h, chunk, fan)
+            return g, pos, h, count
 
-    for nxt in caps[level + 1:]:
-        g, pos, h, count = run_until(nxt, g, pos, h, count)
-        g, pos = _shrink(g, pos, nxt)
-    run_until(0, g, pos, h, count)
+        for nxt in caps[level + 1:]:
+            g, pos, h, count = run_until(nxt, g, pos, h, count)
+            with span("doubling.shrink"):
+                g, pos = _shrink(g, pos, nxt)
+        run_until(0, g, pos, h, count)
     return sa_buf[:n], rank_buf[:n]
 
 
@@ -365,10 +407,12 @@ def build_with_isa(text, idx=_I32, depth: int = 24,
     text, and `isa` is its inverse.
     """
     text = _prepare(text, idx, depth, fan, device)
-    sa_s0, rank_s0, count0 = _initial_sorted(text, depth, chunk, idx)
-    h0 = min(depth, _chunk_len(text.shape[0], chunk))
-    return _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
-                   adaptive, want_isa=True, chunk=chunk)
+    with span("doubling.build"):
+        sa_s0, rank_s0, count0 = _initial(
+            lambda: _initial_sorted(text, depth, chunk, idx))
+        h0 = min(depth, _chunk_len(text.shape[0], chunk))
+        return _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
+                       adaptive, want_isa=True, chunk=chunk)
 
 
 def build_sa(text, idx=_I32, depth: int = 24,
@@ -379,10 +423,12 @@ def build_sa(text, idx=_I32, depth: int = 24,
     sort when the build resolves in the full rounds. `sort()` and the
     partitioned index (with `chunk`) use this."""
     text = _prepare(text, idx, depth, fan, device)
-    sa_s0, rank_s0, count0 = _initial_sorted(text, depth, chunk, idx)
-    h0 = min(depth, _chunk_len(text.shape[0], chunk))
-    sa, _ = _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
-                    adaptive, want_isa=False, chunk=chunk)
+    with span("doubling.build"):
+        sa_s0, rank_s0, count0 = _initial(
+            lambda: _initial_sorted(text, depth, chunk, idx))
+        h0 = min(depth, _chunk_len(text.shape[0], chunk))
+        sa, _ = _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
+                        adaptive, want_isa=False, chunk=chunk)
     return sa
 
 
@@ -416,11 +462,14 @@ def build_ints_with_isa(seq, idx=_I32, depth: int = 4,
     # the markers -(i+1) must sort below every real value: bias the
     # sequence to be non-negative
     seq = seq - seq.min()
-    planes = shift_planes(seq, range(1, depth))
-    out = device_sort((seq, *planes), num_keys=depth)
-    del planes
-    sa_s0, rank_s0, count0 = _ranks_sorted_only(out)
-    del out
+
+    def sort():
+        planes = shift_planes(seq, range(1, depth))
+        out = device_sort((seq, *planes), num_keys=depth)
+        del planes
+        return _ranks_sorted_only(out)
+
+    sa_s0, rank_s0, count0 = _initial(sort)
     return _refine(sa_s0, rank_s0, count0, min(depth, n), levels, fan,
                    want_isa=True)
 

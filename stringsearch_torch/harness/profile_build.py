@@ -8,13 +8,18 @@ is), then on the Hopper bitonic kernel (`bitonic_sort`) and on the plain
 chained `torch.sort` in its place, and prints for each:
   * the host wall of three builds after a warm-up one (each ends in
     `torch.cuda.synchronize()`), and the peak CUDA memory of a build;
-  * the CUDA-event time of every `device_sort` call of one build, with its
-    plane and key counts, and the build's device time outside the sorts;
-  * from `torch.profiler` over one more build: the device time of each
-    kernel, summed by name (`sort_hist_kernel`, `sort_plan_kernel` and
-    `sort_pass_kernel` are the radix sort's three steps: one histogram
+  * from `torch.profiler` over one more build, and the program's own
+    spans of it (`harness/tracing.py`): the device time of every sort (the
+    `ops.device_sort` spans), by plane and key count, and the build's
+    device time outside the sorts; the device time of each phase of the
+    doubling engine (the `doubling.*` spans: the initial sort, the full
+    rounds, the inverts, the compaction stage, its extraction and shrinks,
+    the host waits) and the tied count round by round; the device time
+    of each kernel, summed by name (`sort_hist_kernel`, `sort_plan_kernel`
+    and `sort_pass_kernel` are the radix sort's three steps: one histogram
     read and one plan a sort, one kernel a pass), and the device's idle
-    share, 1 - summed kernel time / median unprofiled wall.
+    share, 1 - summed kernel time / median unprofiled wall. A sort routed
+    in for an A/B run runs under the same span as `device_sort`.
 Then, on each of the three sorts, the build walls of the small and
 adversarial inputs that `chip_smoke.py` holds against the oracle, whose
 cost is many small sorts. Then, at 2^28 on the radix sort, the same sort
@@ -86,6 +91,7 @@ import torch
 
 import stringsearch_torch as st
 from stringsearch_torch.engines import bstar, dc3, doubling
+from stringsearch_torch.harness import tracing
 from stringsearch_torch.harness.corpus import enwik_like, regression_corpus
 from stringsearch_torch.ops import bitonic, merge, radix_sort, route, steps
 
@@ -104,18 +110,16 @@ def _route_steps(table: dict) -> None:
         setattr(doubling, name, fn)
 
 
-def _timed(sort, log):
-    """`sort`, recording CUDA events around each call into `log`."""
-    def timed_sort(operands, num_keys=1):
+def _routed(sort):
+    """`sort` in `device_sort`'s place, under its span `ops.device_sort`."""
+    if sort is bitonic.device_sort:
+        return sort
+
+    def routed_sort(operands, num_keys=1):
         operands = tuple(operands)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = sort(operands, num_keys)
-        end.record()
-        log.append((len(operands), num_keys, start, end))
-        return out
-    return timed_sort
+        with bitonic.sort_span(operands, num_keys):
+            return sort(operands, num_keys)
+    return routed_sort
 
 
 def _one_build(text):
@@ -130,28 +134,84 @@ def _short(name: str) -> str:
     return re.sub(r"\((?!\().*$", "", name).strip()[:72]
 
 
-def _kernel_sums(fn) -> dict:
-    """Device time of each kernel of fn(), summed by name, from
-    `torch.profiler`: {name: [ms, launches]}."""
+def _profiled(fn) -> tuple:
+    """fn() under `torch.profiler`: the device time of each kernel, summed
+    by name, {name: [ms, launches]}, and the program's spans of it on the
+    profiler's clock, with their device times (`tracing.records`)."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     per = defaultdict(lambda: [0.0, 0])
+    host, device = [], []
     for e in prof.events():
+        start, end = e.time_range.start, e.time_range.end
         if str(e.device_type).endswith("CUDA"):
-            per[_short(e.name)][0] += e.time_range.elapsed_us() / 1e3
+            per[_short(e.name)][0] += (end - start) / 1e3
             per[_short(e.name)][1] += 1
-    return per
+            device.append((e.name, start, end))
+        else:
+            host.append((e.name, start, end))
+    return per, tracing.records(host, device)
+
+
+def _kernel_sums(fn) -> dict:
+    """Device time of each kernel of fn(), summed by name, from
+    `torch.profiler`: {name: [ms, launches]}."""
+    return _profiled(fn)[0]
+
+
+def print_phases(spans) -> None:
+    """Print the doubling engine's phases from its spans, summed over the
+    builds they hold: the device time of the builds, the initial sort, the
+    full rounds less their inverts, the inverts, the compaction stage less
+    its invert, and inside it the extraction and the shrinks; the host
+    waits, their device time (the count's copy) and their host time; the
+    tied count after the initial sort and each round of the first
+    build."""
+    builds = [s for s in spans if s.name == "doubling.build"]
+    if not builds or any(s.device_ms is None for s in builds):
+        print("   phases: no build with device times among the spans")
+        return
+    name = {s.index: s.name for s in spans}
+
+    def ms(what, parent=None):
+        """Device time of the spans `what` under a span `parent`, or
+        anywhere."""
+        return sum(s.device_ms or 0.0 for s in spans if s.name == what and (
+            parent is None or name.get(s.parent) == parent))
+
+    waits = [s for s in spans if s.name == "doubling.wait"]
+    rounds = ms("doubling.round") - ms("doubling.invert", "doubling.round")
+    compact = ms("doubling.compact") - ms("doubling.invert",
+                                          "doubling.compact")
+    print(f"   phases ({len(builds)} build(s), device ms): builds "
+          f"{ms('doubling.build'):.3f}, initial "
+          f"{ms('doubling.initial'):.3f}, full rounds less inverts "
+          f"{rounds:.3f}, inverts {ms('doubling.invert'):.3f}, compaction "
+          f"less its invert {compact:.3f} (extraction "
+          f"{ms('doubling.extract'):.3f}, shrinks "
+          f"{ms('doubling.shrink'):.3f}); {len(waits)} host waits, "
+          f"{ms('doubling.wait'):.3f} ms device, "
+          f"{sum(s.end_us - s.start_us for s in waits) / 1e3:.3f} ms host")
+    first, last = builds[0].index, (builds[1].index if len(builds) > 1
+                                    else float("inf"))
+    tied = [s.attrs.get("tied", s.attrs.get("tied_out")) for s in spans
+            if first < s.index < last and s.name in (
+                "doubling.initial", "doubling.round",
+                "doubling.compact_round")]
+    print(f"   tied after the initial sort and each round (first build): "
+          f"{tied}")
 
 
 def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
             nbytes: int = 0, step_fns: dict = KERNEL_STEPS) -> None:
-    """Three walls of fn() after a warm-up and its peak memory; the
-    CUDA-event time of each sort it makes; its kernels summed by name and
-    the device's idle share. `sort` takes the place of `device_sort` in
-    `modules`, and `step_fns` that of the steps between the sorts in
+    """Three walls of fn() after a warm-up and its peak memory; the device
+    time of each sort it makes and of the doubling engine's phases, from
+    the program's spans; its kernels summed by name and the device's idle
+    share. `sort` takes the place of `device_sort` in `modules`, under the
+    same span, and `step_fns` that of the steps between the sorts in
     `engines/doubling.py`, meanwhile."""
     def route(fn_sort):
         for module in modules:
@@ -161,7 +221,7 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
         fn()
         torch.cuda.synchronize()
 
-    route(sort)
+    route(_routed(sort))
     _route_steps(step_fns)
     try:
         run()
@@ -178,8 +238,6 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
               f"(median {wall:.4f} s{rate}), peak CUDA memory {peak} B",
               flush=True)
 
-        log = []
-        route(_timed(sort, log))
         launches = radix_sort.launches
         step_launches = dict(steps.launches)
         syncs = _syncs(fn)
@@ -187,20 +245,22 @@ def profile(label: str, fn, sort=bitonic.device_sort, modules=(doubling,),
         launches = radix_sort.launches - launches
         step_launches = {k: steps.launches[k] - step_launches[k]
                          for k in step_launches}
-        route(sort)
+
+        per, spans = _profiled(run)
+        sort_spans = [s for s in spans if s.name == "ops.device_sort"]
         by_shape = defaultdict(lambda: [0, 0.0])
-        for c, nk, start, end in log:
-            by_shape[(c, nk)][0] += 1
-            by_shape[(c, nk)][1] += start.elapsed_time(end)
+        for s in sort_spans:
+            shape = (len(s.attrs["itemsizes"]), s.attrs["num_keys"])
+            by_shape[shape][0] += 1
+            by_shape[shape][1] += s.device_ms or 0.0
         sorts = sum(ms for _, ms in by_shape.values())
         for (c, nk), (count, ms) in sorted(by_shape.items()):
             print(f"   sort C={c} keys={nk}: {count} x, {ms:.3f} ms")
-        print(f"   {len(log)} device_sort calls, {launches} radix sort "
+        print(f"   {len(sort_spans)} device_sort calls, {launches} radix sort "
               f"launches, {len(syncs)} host syncs, step kernel launches "
               f"{step_launches}")
         print(f"   host syncs at {dict(sorted(Counter(syncs).items()))}")
-
-        per = _kernel_sums(run)
+        print_phases(spans)
         busy = sum(ms for ms, _ in per.values())
         if not per:
             print("   profiler: no device events recorded (idle share not "
@@ -526,11 +586,10 @@ def compaction_walls() -> None:
         calls, walls = {}, {}
         try:
             for name, text in texts.items():
-                log = []
-                doubling.device_sort = _timed(sort, log)
-                _one_build(text)
-                calls[name] = len(log)
-                doubling.device_sort = sort
+                doubling.device_sort = _routed(sort)
+                calls[name] = sum(
+                    s.name == "ops.device_sort"
+                    for s in _profiled(lambda: _one_build(text))[1])
                 walls[name] = []
                 for _ in range(3):
                     t0 = time.perf_counter()

@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from stringsearch_torch.harness.tracing import span
 from stringsearch_torch.ops import _build
 from stringsearch_torch.ops.radix_sort import radix_sort
 
@@ -426,12 +427,26 @@ def device_sort(operands, num_keys: int = 1) -> tuple:
     one `radix_sort` launch; more planes, or int64 planes, go to
     `wide_sort` over `radix_sort`; any other dtype raises. Stable on both.
     On CUDA n must be below 2^31 (`radix_sort`'s int32 n), int64 planes
-    included.
+    included. Every call runs inside the span `ops.device_sort`
+    (`sort_span`).
     """
     operands = tuple(operands)
-    if operands[0].device.type == "cpu":
-        return plain_sort(operands, num_keys)
-    if len(operands) <= _MAX_PLANES and all(
-            op.dtype == torch.int32 for op in operands):
-        return radix_sort(operands, num_keys)
-    return wide_sort(operands, num_keys, radix_sort)
+    with sort_span(operands, num_keys):
+        if operands[0].device.type == "cpu":
+            return plain_sort(operands, num_keys)
+        if len(operands) <= _MAX_PLANES and all(
+                op.dtype == torch.int32 for op in operands):
+            return radix_sort(operands, num_keys)
+        return wide_sort(operands, num_keys, radix_sort)
+
+
+def sort_span(operands: tuple, num_keys: int):
+    """The span `ops.device_sort` of a sort of `operands` by `num_keys`
+    (`harness/tracing.py`), with its attributes: the length `n`,
+    `num_keys` and `itemsizes`, the bytes an element of each plane. A
+    sort moves each plane in and out once, 2 n sum(itemsizes) bytes."""
+    sp = span("ops.device_sort")
+    if sp:
+        sp.set(n=int(operands[0].shape[0]), num_keys=num_keys,
+               itemsizes=tuple(op.element_size() for op in operands))
+    return sp

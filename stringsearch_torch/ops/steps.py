@@ -37,6 +37,11 @@ type, shape or launch error. There is no other route and no fallback.
 turns with the kernels, to measure what the kernels save; nothing else
 runs them there.
 
+`pack_keys`, `shift_planes` and `head_ranks` each run inside a span of
+their name (`ops.pack_keys`, ...; `harness/tracing.py`) whose attributes
+`reads` and `writes` give (elements, bytes an element) of each plane the
+step reads and writes: the bytes its kernel must move.
+
 `segment_heads`, `heads_and_tied` and `last_flagged` (the
 cumsum-and-scatter form of the reference's `cummax`) stay plain: the
 plain versions use them, and so do the compaction rounds (flat and
@@ -51,6 +56,7 @@ import threading
 
 import torch
 
+from stringsearch_torch.harness.tracing import planes, spanned
 from stringsearch_torch.ops import _build
 
 _SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "steps.cu")
@@ -192,6 +198,8 @@ def plain_pack_keys(text, depth: int, chunk=None, idx=_I32) -> tuple:
     return (*lead, *keys, j)
 
 
+@spanned("ops.pack_keys", lambda out, text, *a, **k: {
+    "reads": planes((text,)), "writes": planes(out)})
 def pack_keys(text, depth: int, chunk=None, idx=_I32) -> tuple:
     """The operands of the initial `depth`-byte sort of a uint8 text.
 
@@ -258,6 +266,8 @@ def plain_shift_planes(rank, shifts, chunk=None) -> list:
     return out
 
 
+@spanned("ops.shift_planes", lambda out, rank, *a, **k: {
+    "reads": planes((rank,)), "writes": planes(out)})
 def shift_planes(rank, shifts, chunk=None) -> list:
     """[rank shifted by s for each s in `shifts`] + [the position plane].
 
@@ -375,6 +385,8 @@ def _launch_heads(kernel: str, keys, n: int, prev, offset: int, idx,
     return rank_s, count
 
 
+@spanned("ops.head_ranks", lambda res, out: {
+    "reads": planes(tuple(out)[:-1]), "writes": planes(res[1:2])})
 def head_ranks(out):
     """Head-slot ranking of a sorted (keys..., payload) tuple, in sorted
     order. Returns (sa_s, rank_s, count): sa_s is out[-1] as it is;
