@@ -37,8 +37,8 @@ present. Phases, each printed with its result and time:
   3. `build_suffix_array(enwik_like(2^28), device="cuda")`, then the
      device verify and the host oracle's sufcheck; over the build the
      radix sort's launch count must be > 0 and the bitonic sort's 0, and
-     each of the three step kernels' of the flat build (`ops/steps.py`:
-     `pack_keys`, `shift_planes`, `head_ranks`) > 0;
+     each of the four step kernels' of the flat build (`ops/steps.py`:
+     `pack_keys`, `shift_planes`, `head_ranks`, `invert_ranks`) > 0;
   4. the SA byte-exact against the C++ oracle on enwik-like 2^24 text, the
      regression corpus and adversarial inputs that reach compaction;
   5. 256 LCS, 256 exact and 16 single-byte queries on the 2^28 index,
@@ -129,10 +129,12 @@ present. Phases, each printed with its result and time:
      seconds, the bytes per shard against the comm model and its peak
      memory. The processes' exact searches and single-byte counts must
      equal the oracle's, and every answer must agree across them;
- 15. the three step kernels against their plain versions, tolerance 0:
+ 15. the four step kernels against their plain versions, tolerance 0:
      `pack_keys` on phase 3's text (depth 12, flat and in four chunks),
-     `head_ranks` on its own sort of those operands, `shift_planes` of a
-     fan-4 round at h = 12 on the text-order ranks of that sort, and
+     `head_ranks` on its own sort of those operands, `invert_ranks` on
+     that sort's order (also beside the C=2 radix sort it replaced),
+     `shift_planes` of a fan-4 round at h = 12 on the text-order ranks of
+     that sort, and
      `head_ranks` on the round's sort and on one group over all 2^28
      slots (the longest look-back); each timed with CUDA events beside
      its plain version and its bytes bound, `head_ranks` also beside
@@ -141,7 +143,9 @@ present. Phases, each printed with its result and time:
      each kernel's tile, chunks 4 and near 1000, depths 4, 12 and 24,
      fans 2 to 4 with h at and past the chunk, all-equal keys over 2^24
      slots, all-distinct keys, groups that start only at tile starts,
-     int32 and int64;
+     random and striped permutations to 2^24 + 12345 (both designs of
+     `invert_ranks`, into a new plane and an [n + 1] buffer), int32 and
+     int64;
  16. the global build's two kernels against their plain versions,
      tolerance 0: `merge_split` on the first merge of phase 13's initial
      sort (L = 2^26 a shard, four packed key words and the position, both
@@ -219,7 +223,7 @@ SORT_SHAPES = (("invert", 2, 1), ("initial", 4, 3), ("round", 5, 4))
 # the engines phases 9 to 11 drive
 ENGINES = "doubling,dc3,bstar"
 # the step kernels of the flat build (phase 3)
-FLAT_STEPS = ("pack_keys", "shift_planes", "head_ranks")
+FLAT_STEPS = ("pack_keys", "shift_planes", "head_ranks", "invert_ranks")
 # radix sort launches of the global build at 2^28 on four shards, and of
 # one process of two, before merge_split took the merges (PERF.md §6),
 # and before the routing kernels took the routing sorts
@@ -1112,9 +1116,10 @@ def phase8_partitioned(text_np, sa_host, lcs_needles, full_lens,
         f"{build_s:.4f} s, second build {rebuild_s:.4f} s "
         f"({n / rebuild_s:.1f} B/s), radix sort launches {launches}, peak "
         f"CUDA memory {build_peak} B [{card}]")
-    # the sorts of one build: the initial sort, an invert and a round
-    check(launches == 3, f"the partitioned build launched {launches} radix "
-                         f"sorts, a flat build 3")
+    # the sorts of one build: the initial sort and a round (the invert
+    # before the round is a scatter, `invert_ranks`)
+    check(launches == 2, f"the partitioned build launched {launches} radix "
+                         f"sorts, a flat build 2")
     psize = index.partition_size
     for p in range(parts):
         flat = st.build_suffix_array(index.chunks[p]).sa
@@ -1989,7 +1994,8 @@ def _step_edge_cases(gen) -> dict:
             out.append(min(divisors, key=lambda d: abs(d - 1000)))
         return out
 
-    done = {"pack_keys": [0, 0], "shift_planes": [0, 0], "head_ranks": [0, 0]}
+    done = {"pack_keys": [0, 0], "shift_planes": [0, 0], "head_ranks": [0, 0],
+            "invert_ranks": [0, 0]}
 
     def held(kernel, got, want):
         done[kernel][0] += 1
@@ -2034,12 +2040,29 @@ def _step_edge_cases(gen) -> dict:
                 held("head_ranks", [got[1]], [want[1]])
                 done["head_ranks"][1] = max(
                     done["head_ranks"][1], abs(int(got[2]) - int(want[2])))
+    # both designs: one store an element, and by windows from 2^24
+    tile = steps.INVERT_TILE
+    for n in (1, 2, 3, tile // 2 - 1, tile // 2 + 1, tile - 1, tile, tile + 1,
+              (1 << 24) + 12345):
+        for idx in (torch.int32, torch.int64):
+            rank = torch.randint(0, n, (n,), generator=gen).to(idx).to("cuda")
+            for sa in (torch.randperm(n, generator=gen),
+                       torch.cat([torch.arange(n)[k::3] for k in range(3)])):
+                sa = sa.to(idx).to("cuda")
+                held("invert_ranks", [steps.invert_ranks(sa, rank)],
+                     [steps.plain_invert_ranks(sa, rank)])
+                buf = torch.full((n + 1,), -9, dtype=idx, device="cuda")
+                steps.invert_ranks(sa, rank, buf)
+                held("invert_ranks", [buf], [torch.cat(
+                    [steps.plain_invert_ranks(sa, rank), buf[n:]])])
+                done["invert_ranks"][1] = max(done["invert_ranks"][1],
+                                              abs(int(buf[n]) + 9))
     torch.cuda.synchronize()
     return {k: tuple(v) for k, v in done.items()}
 
 
 def phase15_steps(text_np, card: str) -> dict:
-    """The three step kernels against their plain versions at 2^28 on phase
+    """The four step kernels against their plain versions at 2^28 on phase
     3's text and on the edge cases, with times. Returns one report per
     kernel."""
     import torch
@@ -2051,22 +2074,26 @@ def phase15_steps(text_np, card: str) -> dict:
     text = torch.from_numpy(text_np.copy()).to("cuda")
     reports = {k: {"shapes": []} for k in FLAT_STEPS}
 
-    def held(kernel, shape, got, want, fn, plain, nbytes, library=None):
+    def held(kernel, shape, got, want, fn, plain, nbytes, library=None,
+             replaced=None):
         err = _exact_err(got, want)
         ms = cuda_ms(fn, 5)
         plain_ms = cuda_ms(plain, 2)
         library_ms = round(cuda_ms(library, 3), 4) if library else None
+        replaced_ms = round(cuda_ms(replaced, 3), 4) if replaced else None
         bounds = bound(nbytes, 0)
         say(f"phase 15: {kernel} {shape} n=2^{LOG2N}: max_abs_err {err} "
             f"(tolerance 0); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             + (f", library {library_ms} ms" if library else "")
+            + (f", the route it replaced {replaced_ms} ms" if replaced
+               else "")
             + f"; bound {bounds['bound_ms']} ms ({nbytes} B), share "
             f"{bounds['bound_ms'] / ms:.3f} [{card}]")
         check(err == 0, f"{kernel} {shape} disagrees with its plain version")
         reports[kernel]["shapes"].append({
             "shape": shape, "n": n, "max_abs_err": err, "ms": round(ms, 4),
             "plain_ms": round(plain_ms, 4), "library_ms": library_ms,
-            **bounds})
+            "replaced_ms": replaced_ms, **bounds})
 
     def heads(what, out):
         got = steps.head_ranks(out)
@@ -2108,8 +2135,19 @@ def phase15_steps(text_np, card: str) -> dict:
     torch.cuda.empty_cache()
     heads("initial", out)
     _, rank_s, _ = steps.head_ranks(out)
-    rank = doubling._scatter_to_text_order(out[-1], rank_s)
-    del out, rank_s
+    sa_s = out[-1]
+    del out
+    torch.cuda.empty_cache()
+    # the round's invert: the initial sort's order, against the C=2 sort
+    # the engine ran before
+    rank = doubling._scatter_to_text_order(sa_s, rank_s)
+    held("invert_ranks", "the initial sort's order", [rank],
+         [steps.plain_invert_ranks(sa_s, rank_s)],
+         lambda: steps.invert_ranks(sa_s, rank_s),
+         lambda: steps.plain_invert_ranks(sa_s, rank_s), 12 * n,
+         replaced=lambda: device_sort((sa_s, rank_s), 1))
+    del sa_s, rank_s
+    torch.cuda.empty_cache()
     shifts = [12, 24, 36]
     planes = steps.shift_planes(rank, shifts)
     held("shift_planes", "fan 4, h = 12", planes,
@@ -2901,17 +2939,21 @@ def main() -> int:
     # the first shape timed (head_ranks: the second, after the round's
     # sort, the larger of the two on the main path).
     step_kernels = []
-    for name, what in (("pack_keys", "_pack4_keys, doubling.py:83"),
-                       ("shift_planes", "_shift_ranks, doubling.py:116"),
-                       ("head_ranks", "_ranks_sorted_only, doubling.py:151")):
+    for name, what in (
+            ("pack_keys", "the jnp ops of _pack4_keys, doubling.py:83"),
+            ("shift_planes", "the jnp ops of _shift_ranks, doubling.py:116"),
+            ("head_ranks",
+             "the jnp ops of _ranks_sorted_only, doubling.py:151"),
+            ("invert_ranks",
+             "the 1-key sort of _scatter_to_text_order, doubling.py:105")):
         rep = steps_report[name]
         head = rep["shapes"][1 if name == "head_ranks" else 0]
         step_kernels.append({
             "name": f"steps_{name}",
             "route": "cuda",
             "source": "stringsearch_torch/ops/csrc/steps.cu",
-            "replaces": f"no pl.pallas_call: the jnp ops of {what} in the "
-                        f"JAX package's engines, which XLA fuses",
+            "replaces": f"no pl.pallas_call: {what} in the JAX package's "
+                        f"engines, which XLA fuses or sorts",
             "launches": build["step_launches"][name],
             "max_abs_err": max([s["max_abs_err"] for s in rep["shapes"]]
                                + [rep["edge_max_abs_err"]]),
@@ -2920,6 +2962,7 @@ def main() -> int:
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "replaced_route_ms": head["replaced_ms"],
             "timed_shape": head["shape"],
             "shapes": rep["shapes"],
             "edge_cases": rep["edge_cases"],

@@ -18,7 +18,10 @@ What differs from the JAX package, and why:
     read the tied count with one `.item()` per round; `h` is a host int.
   * The steps between the sorts are `ops/steps.py`: `pack_keys`,
     `shift_planes` and `head_ranks`, each one hand-written kernel on
-    CUDA, where XLA fuses the reference's jnp ops. Group heads (the
+    CUDA, where XLA fuses the reference's jnp ops. The inverse
+    permutation of a sorted order's ranks is `invert_ranks`, a scatter
+    (a hand-written kernel on CUDA), where the reference sorts (sa, rank_s)
+    by sa. Group heads (the
     reference's `cummax`) come on CUDA from `head_ranks`' scan with
     decoupled look-back; on the CPU, and in the compaction rounds and the
     bstar engine on both, from a cumsum and a scatter (`_segment_heads`).
@@ -69,6 +72,7 @@ from stringsearch_torch.ops.steps import (
     chunk_len as _chunk_len,
     head_ranks,
     heads_and_tied as _heads_and_tied,
+    invert_ranks,
     pack_keys,
     segment_heads as _segment_heads,
     shift_planes,
@@ -114,13 +118,13 @@ def _pack4_keys(text: torch.Tensor, depth: int, chunk=None) -> tuple:
     return tuple(planes[lead:-1])
 
 
-def _scatter_to_text_order(sa, rank_s):
-    """rank[sa] = rank_s as a 1-key sort: sorting (sa, rank_s) by sa places
-    rank_s[j] at text position sa[j]. The span `doubling.invert` holds the
-    operation, whatever implements it."""
+def _scatter_to_text_order(sa, rank_s, out=None):
+    """rank[sa] = rank_s: sa is a permutation, so one scatter places
+    rank_s[j] at text position sa[j] (`invert_ranks`; into the first n
+    slots of `out` where it is given). The span `doubling.invert` holds
+    the operation, whatever implements it."""
     with span("doubling.invert"):
-        _, rank = device_sort((sa, rank_s), num_keys=1)
-    return rank
+        return invert_ranks(sa, rank_s, out)
 
 
 def _read_count(count_t) -> int:
@@ -357,9 +361,8 @@ def _refine(sa_s0, rank_s0, count0: int, h0: int, levels, fan: int,
         method = "topk" if caps[level] * 32 <= n else "sort"
     with span("doubling.compact"):
         # the compact rounds' shifted-key gathers read text-order ranks
-        rank = _scatter_to_text_order(sa_s, rank_s)
-        rank_buf = torch.cat([rank, rank.new_zeros((1,))])
-        del rank
+        rank_buf = _scatter_to_text_order(sa_s, rank_s,
+                                          rank_s.new_empty((n + 1,)))
         sa_buf = torch.cat([sa_s, sa_s.new_zeros((1,))])
         with span("doubling.extract"):
             g, pos = _extract(rank_s, sa_s, caps[level], method)

@@ -2,9 +2,10 @@
 //
 // Four kernels, each the fusion of a chain of PyTorch ops that
 // `engines/doubling.py` ran one op, and one pass over device memory, at a
-// time. None replaces a Pallas kernel: the JAX package writes these steps
-// as jnp ops inside its one jitted build (stringsearch_tpu/engines/
-// doubling.py:9-10, `build_sa` l.370), and XLA fuses them there.
+// time, and the invert, which it ran as a sort. None replaces a Pallas
+// kernel: the JAX package writes these steps as jnp ops inside its one
+// jitted build (stringsearch_tpu/engines/doubling.py:9-10, `build_sa`
+// l.370), and XLA fuses them there.
 //
 //   pack_keys_kernel  replaces `_pack4_keys` (stringsearch_tpu/engines/
 //       doubling.py:83) and the position `arange` of `_initial_sorted`
@@ -36,6 +37,11 @@
 //       plane s at i is the window [r, r + L) of the two shards that the
 //       round's ppermutes delivered, or the marker -(global i + 1) where
 //       i + h lies past the padded text.
+//   invert_ranks_kernel, or invert_partition_kernel twice and
+//       invert_place_kernel, replace the 1-key sort of (sa_s, rank_s) in
+//       `_scatter_to_text_order` (stringsearch_tpu/engines/doubling.py:
+//       105): out[sa_s[j]] = rank_s[j]. sa_s is a permutation, so one
+//       scatter gives what the sort gave.
 //
 // Bound: device-memory bytes, for all of them. Each reads its inputs and
 // writes its outputs once and does a few integer operations an element:
@@ -44,7 +50,9 @@
 //                 a shift, and the positions;
 //   shard_shift_planes  one window of L elements in a shift (but for the
 //                 markers), one plane out a shift, and the positions;
-//   head_ranks    every key plane in, one rank plane out.
+//   head_ranks    every key plane in, one rank plane out;
+//   invert_ranks  sa_s and rank_s in, one rank plane out: 12 n bytes in
+//                 int32.
 // What the design does about it:
 //   * One pass each, in place of one op a pass (the eager chain makes a
 //     temporary plane for every shift, OR, compare, cat and cumsum).
@@ -73,6 +81,21 @@
 //   * The tied count is local (a slot and its successor's flag): a block
 //     reduction and one 64-bit atomic add a tile into a 0-d device tensor,
 //     which the host reads only when the engine asks (no added sync).
+//   * The invert's stores land at random slots. One store an element
+//     straight from registers costs a 32-byte sector a 4-byte element,
+//     assembled in L2 from stores of many blocks: where the output fits
+//     L2 (kDirectBytes) that is the fastest, but past it every store
+//     fetches and writes back a sector of device memory, 20.3 ms at 2^28
+//     against the 0.96 ms of its bytes (a random permutation, H100).
+//     Held in L2, partial stores still go at about 45 G a second (a
+//     scatter inside 8 MB windows: 6.0 ms at 2^28). So a larger output
+//     is written in three coalesced passes of 44 n bytes, 4.35 ms at
+//     2^28: a partition of the pairs by window of the output (8 MB; one
+//     cursor a window and an atomic add a tile, no counting pass, since a
+//     permutation fills each window exactly), a partition of each
+//     window's pairs by place (64 KB of output), and a block a place that
+//     stores its ranks into shared memory and writes the place out in
+//     order, each sector once. Reads leave L2 first (ld.global.cs).
 //
 // Interface: plain C, loaded with ctypes. Each function launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns
@@ -103,6 +126,19 @@ constexpr int kScanItems = 8;  // consecutive slots a thread
 constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr int kScanWarps = kScanThreads / 32;
 constexpr int kMaxKeys = 64;
+
+constexpr int kInvertThreads = 512;
+constexpr int kInvertWarps = kInvertThreads / 32;
+constexpr int kInvertTileBytes = 64 * 1024;  // a partition tile's pairs
+// buckets of one partition: the scan over them takes two a thread
+constexpr int kMaxBuckets = 2 * kInvertThreads;
+// output bytes of a window, the first partition's bucket, and of a place,
+// the second's, which a block of the last step holds in shared memory
+constexpr int64_t kWindowBytes = int64_t(8) << 20;
+constexpr int kPlaceBytes = 64 * 1024;
+// the largest output invert_ranks writes one store an element: L2 holds
+// it, so its sectors are assembled there; a larger one is partitioned
+constexpr int64_t kDirectBytes = int64_t(32) << 20;
 
 // Look-back words: status << 62 | value. kNone: the tile holds no flag and
 // does not know its inclusive value yet; kInclusive: value is the last
@@ -562,6 +598,294 @@ int launch_shard_shift(int64_t n, int64_t offset, int count, void** outs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// invert_ranks
+// ---------------------------------------------------------------------------
+
+template <typename Idx>
+struct alignas(2 * sizeof(Idx)) Pair {
+  Idx slot;
+  Idx rank;
+};
+
+// Pairs a thread of a partition, kInvertThreads apart: a tile's pairs fill
+// kInvertTileBytes of shared memory (16 a thread for int32, 8 for int64).
+template <typename Idx>
+__host__ __device__ constexpr int invert_items() {
+  return kInvertTileBytes / kInvertThreads /
+         static_cast<int>(sizeof(Pair<Idx>));
+}
+
+// Loads that leave L2 first (ld.global.cs): each input is read once.
+__device__ __forceinline__ int load_first(const int* p) { return __ldcs(p); }
+
+__device__ __forceinline__ int64_t load_first(const int64_t* p) {
+  return static_cast<int64_t>(__ldcs(reinterpret_cast<const long long*>(p)));
+}
+
+__device__ __forceinline__ Pair<int> load_first(const Pair<int>* p) {
+  const int2 v = __ldcs(reinterpret_cast<const int2*>(p));
+  return Pair<int>{v.x, v.y};
+}
+
+__device__ __forceinline__ Pair<int64_t> load_first(const Pair<int64_t>* p) {
+  const longlong2 v = __ldcs(reinterpret_cast<const longlong2*>(p));
+  return Pair<int64_t>{static_cast<int64_t>(v.x), static_cast<int64_t>(v.y)};
+}
+
+template <typename Idx>
+__device__ __forceinline__ bool inside(Idx slot, int64_t n) {
+  return static_cast<uint64_t>(slot) < static_cast<uint64_t>(n);
+}
+
+// A tile's pairs in registers, all loads issued before any use: from the
+// planes (sa[j], rank_s[j]), or from `pairs` where it is not null; slot -1
+// past n.
+template <typename Idx, int kItems>
+__device__ __forceinline__ void load_tile(const Idx* __restrict__ sa,
+                                          const Idx* __restrict__ rank_s,
+                                          const Pair<Idx>* __restrict__ pairs,
+                                          int64_t n, Pair<Idx> (&p)[kItems]) {
+  const int64_t j0 =
+      static_cast<int64_t>(blockIdx.x) * kInvertThreads * kItems + threadIdx.x;
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const int64_t j = j0 + static_cast<int64_t>(m) * kInvertThreads;
+    if (j >= n) {
+      p[m] = Pair<Idx>{Idx(-1), Idx(0)};
+    } else if (pairs != nullptr) {
+      p[m] = load_first(pairs + j);
+    } else {
+      p[m] = Pair<Idx>{load_first(sa + j), load_first(rank_s + j)};
+    }
+  }
+}
+
+// One store an element: out[sa[j]] = rank_s[j] straight from registers.
+template <typename Idx>
+__global__ void __launch_bounds__(kInvertThreads)
+    invert_ranks_kernel(const Idx* __restrict__ sa,
+                        const Idx* __restrict__ rank_s, int64_t n,
+                        Idx* __restrict__ out) {
+  constexpr int kItems = invert_items<Idx>();
+  Pair<Idx> p[kItems];
+  load_tile(sa, rank_s, static_cast<const Pair<Idx>*>(nullptr), n, p);
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    if (inside(p[m].slot, n)) out[p[m].slot] = p[m].rank;
+  }
+}
+
+// A partition of a tile's pairs by bucket: bucket g holds the slots [g <<
+// shift, (g + 1) << shift), and a tile takes the `buckets` buckets from
+// g0 = (its first index >> group_shift) << (group_shift - shift) on (g0 =
+// 0 where group_shift < 0). A permutation puts exactly a bucket's size of
+// pairs in each, so bucket g's pairs go to staged[g << shift, ...) with no
+// counting pass: the tile counts its pairs a bucket in shared memory,
+// claims a run of each bucket's places with one atomic add to the
+// bucket's cursor, stages its pairs by bucket in shared memory and writes
+// each run out in order. Neighbouring runs of one bucket are claimed by
+// tiles in flight together, so their sectors meet in L2. A pair outside
+// the tile's buckets, or past a bucket's size (sa no permutation), is
+// dropped.
+template <typename Idx>
+__global__ void __launch_bounds__(kInvertThreads, 2)
+    invert_partition_kernel(const Idx* __restrict__ sa,
+                            const Idx* __restrict__ rank_s,
+                            const Pair<Idx>* __restrict__ pairs, int64_t n,
+                            int shift, int group_shift, int buckets,
+                            unsigned* __restrict__ cursor,
+                            Pair<Idx>* __restrict__ staged) {
+  constexpr int kItems = invert_items<Idx>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  Pair<Idx>* tile = reinterpret_cast<Pair<Idx>*>(smem);
+  __shared__ unsigned count[kMaxBuckets];  // pairs a bucket, then a cursor
+  __shared__ unsigned start[kMaxBuckets];  // a bucket's first place in tile
+  __shared__ unsigned base[kMaxBuckets];   // its run's first in the bucket
+  __shared__ unsigned warp_sum[kInvertWarps];
+  __shared__ unsigned filled;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t g0 =
+      group_shift < 0
+          ? 0
+          : (static_cast<int64_t>(blockIdx.x) * kInvertThreads * kItems >>
+             group_shift) << (group_shift - shift);
+  Pair<Idx> p[kItems];
+  load_tile(sa, rank_s, pairs, n, p);
+  unsigned b[kItems];  // the local bucket, or buckets where dropped
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const uint64_t g = static_cast<uint64_t>((p[m].slot >> shift) - g0);
+    b[m] = inside(p[m].slot, n) && g < static_cast<uint64_t>(buckets)
+               ? static_cast<unsigned>(g)
+               : static_cast<unsigned>(buckets);
+  }
+  for (int g = tid; g < buckets; g += kInvertThreads) count[g] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    if (b[m] < static_cast<unsigned>(buckets)) atomicAdd(&count[b[m]], 1u);
+  }
+  __syncthreads();
+
+  // buckets 2 tid and 2 tid + 1: their first places in the tile (a scan),
+  // and their runs' places in the buckets (an atomic add each)
+  const int w0 = 2 * tid;
+  const unsigned c0 = w0 < buckets ? count[w0] : 0u;
+  const unsigned c1 = w0 + 1 < buckets ? count[w0 + 1] : 0u;
+  unsigned incl = c0 + c1;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned o = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += o;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  unsigned excl = incl - c0 - c1;
+#pragma unroll
+  for (int w = 0; w < kInvertWarps; ++w) {
+    if (w < warp) excl += warp_sum[w];
+  }
+  if (c0) {
+    start[w0] = count[w0] = excl;
+    base[w0] = atomicAdd(cursor + g0 + w0, c0);
+  }
+  if (c1) {
+    start[w0 + 1] = count[w0 + 1] = excl + c0;
+    base[w0 + 1] = atomicAdd(cursor + g0 + w0 + 1, c1);
+  }
+  if (tid == kInvertThreads - 1) filled = excl + c0 + c1;
+  __syncthreads();
+
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    if (b[m] < static_cast<unsigned>(buckets)) {
+      tile[atomicAdd(&count[b[m]], 1u)] = p[m];
+    }
+  }
+  __syncthreads();
+  // consecutive threads on consecutive places of one bucket's run
+  const unsigned total = filled;
+  for (unsigned i = tid; i < total; i += kInvertThreads) {
+    const Pair<Idx> q = tile[i];
+    const int g = static_cast<int>((q.slot >> shift) - g0);
+    const int64_t first = (g0 + g) << shift;
+    const int64_t size =
+        n - first < (int64_t(1) << shift) ? n - first : int64_t(1) << shift;
+    const int64_t at = static_cast<int64_t>(base[g]) + (i - start[g]);
+    if (at < size) staged[first + at] = q;
+  }
+}
+
+// The last step: block g owns the slots [g << shift, (g + 1) << shift),
+// whose pairs lie in the same places of `staged`. It stores each rank
+// into shared memory at its slot, then writes the slots out in order, so
+// every sector of the output is written once, whole.
+template <typename Idx>
+__global__ void __launch_bounds__(kInvertThreads)
+    invert_place_kernel(const Pair<Idx>* __restrict__ staged, int64_t n,
+                        int shift, Idx* __restrict__ out) {
+  constexpr int kItems = invert_items<Idx>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  Idx* slots = reinterpret_cast<Idx*>(smem);
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) << shift;
+  const int size = static_cast<int>(
+      n - lo < (int64_t(1) << shift) ? n - lo : int64_t(1) << shift);
+  for (int i0 = 0; i0 < size; i0 += kInvertThreads * kItems) {
+    Pair<Idx> p[kItems];
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const int i = i0 + m * kInvertThreads + threadIdx.x;
+      p[m] = i < size ? load_first(staged + lo + i)
+                      : Pair<Idx>{Idx(-1), Idx(0)};
+    }
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const uint64_t at = static_cast<uint64_t>(p[m].slot - lo);
+      if (at < static_cast<uint64_t>(size)) slots[at] = p[m].rank;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < size; i += kInvertThreads) {
+    out[lo + i] = slots[i];
+  }
+}
+
+bool partitioned(int64_t n, int idx_bytes) {
+  return n * idx_bytes > kDirectBytes;
+}
+
+// log2 of the slots of a window (the first partition's bucket):
+// kWindowBytes of output of idx_bytes a slot, or more where kMaxBuckets
+// windows would not cover n.
+int window_shift(int64_t n, int idx_bytes) {
+  int shift = 0;
+  while ((int64_t(idx_bytes) << shift) < kWindowBytes) ++shift;
+  while (((n - 1) >> shift) + 1 > kMaxBuckets) ++shift;
+  return shift;
+}
+
+// log2 of the slots of a block of the last step: kPlaceBytes of output.
+int place_shift(int idx_bytes) {
+  int shift = 0;
+  while ((int64_t(idx_bytes) << shift) < kPlaceBytes) ++shift;
+  return shift;
+}
+
+// Dynamic shared memory past 48 KB needs the kernel's attribute first.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename Idx>
+int launch_invert(const void* sa_v, const void* rank_v, int64_t n,
+                  void* out_v, void* scratch, cudaStream_t s) {
+  const auto* sa = static_cast<const Idx*>(sa_v);
+  const auto* rank_s = static_cast<const Idx*>(rank_v);
+  auto* out = static_cast<Idx*>(out_v);
+  const int blocks = blocks_of(n, kInvertThreads * invert_items<Idx>());
+  if (!partitioned(n, sizeof(Idx))) {
+    invert_ranks_kernel<Idx><<<blocks, kInvertThreads, 0, s>>>(sa, rank_s, n,
+                                                               out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int wshift = window_shift(n, sizeof(Idx));
+  const int pshift = place_shift(sizeof(Idx));
+  const int windows = static_cast<int>(((n - 1) >> wshift) + 1);
+  const int64_t places = ((n - 1) >> pshift) + 1;
+  if (wshift - pshift > 10 || places > (int64_t(1) << 31) - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* staged = static_cast<Pair<Idx>*>(scratch);
+  auto* cursor = reinterpret_cast<unsigned*>(staged + 2 * n);
+  cudaError_t err = cudaMemsetAsync(
+      cursor, 0, sizeof(unsigned) * (windows + places), s);
+  if (err == cudaSuccess) {
+    err = allow_smem(invert_partition_kernel<Idx>, kInvertTileBytes);
+  }
+  if (err == cudaSuccess) {
+    err = allow_smem(invert_place_kernel<Idx>, kPlaceBytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // by window, then by place inside each window (a tile lies in one
+  // window), then each place's slots in shared memory
+  invert_partition_kernel<Idx><<<blocks, kInvertThreads, kInvertTileBytes,
+                                 s>>>(sa, rank_s, nullptr, n, wshift, -1,
+                                      windows, cursor, staged);
+  invert_partition_kernel<Idx><<<blocks, kInvertThreads, kInvertTileBytes,
+                                 s>>>(nullptr, nullptr, staged, n, pshift,
+                                      wshift, 1 << (wshift - pshift),
+                                      cursor + windows, staged + n);
+  invert_place_kernel<Idx><<<static_cast<int>(places), kInvertThreads,
+                             kPlaceBytes, s>>>(staged + n, n, pshift, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -745,6 +1069,36 @@ int ss_head_ranks(const void* const* planes, const int* plane_bytes, int keys,
         static_cast<int64_t*>(rank_out), c, words, counter);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of scratch `ss_invert_ranks` needs for n slots of idx_bytes: none
+// for one store an element; partitioned, two pairs a slot (the two
+// partitions' outputs) and a cursor a window and a place.
+int64_t ss_invert_ranks_scratch_bytes(int64_t n, int idx_bytes) {
+  if (n < 1 || !partitioned(n, idx_bytes)) return 0;
+  const int64_t windows = ((n - 1) >> window_shift(n, idx_bytes)) + 1;
+  const int64_t places = ((n - 1) >> place_shift(idx_bytes)) + 1;
+  return n * 4 * idx_bytes + (windows + places) * 4;
+}
+
+// The inverse permutation's ranks: out[sa[j]] = rank_s[j] for j < n, where
+// sa (a permutation of [0, n)), rank_s and out hold idx_bytes (4 or 8) a
+// slot; slots of out from n on are not written. scratch:
+// ss_invert_ranks_scratch_bytes(n, idx_bytes), 16-byte aligned (null
+// where that is 0).
+int ss_invert_ranks(const void* sa, const void* rank_s, int64_t n,
+                    int idx_bytes, void* out, void* scratch, void* stream) {
+  if (n < 1 || (idx_bytes != 4 && idx_bytes != 8) ||
+      (partitioned(n, idx_bytes) &&
+       (scratch == nullptr ||
+        (reinterpret_cast<uintptr_t>(scratch) & 15) != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (idx_bytes == 4) {
+    return launch_invert<int>(sa, rank_s, n, out, scratch, s);
+  }
+  return launch_invert<int64_t>(sa, rank_s, n, out, scratch, s);
 }
 
 const char* ss_steps_error_string(int code) {

@@ -25,6 +25,10 @@ and the partitioned build, and `build_ints_with_isa` under dc3 and bstar.
     round from the shards the round's ppermutes delivered, with the end
     marker past the padded text and the global positions (its
     `_shifted_ranks`, l.216, once a shift, and the round's `arange`).
+  * `invert_ranks`: the text-order ranks of a sorted order, rank[sa_s[j]]
+    = rank_s[j] (its `_scatter_to_text_order`, l.105, which sorts (sa_s,
+    rank_s) by sa_s: sa_s is a permutation, so one scatter gives the same
+    ranks).
 
 None of them replaces a Pallas kernel: the JAX package writes these steps
 as jnp ops inside one jitted build, which XLA fuses into a few passes. The
@@ -37,8 +41,9 @@ type, shape or launch error. There is no other route and no fallback.
 turns with the kernels, to measure what the kernels save; nothing else
 runs them there.
 
-`pack_keys`, `shift_planes` and `head_ranks` each run inside a span of
-their name (`ops.pack_keys`, ...; `harness/tracing.py`) whose attributes
+`pack_keys`, `shift_planes`, `head_ranks` and `invert_ranks` each run
+inside a span of their name (`ops.pack_keys`, ...; `harness/tracing.py`)
+whose attributes
 `reads` and `writes` give (elements, bytes an element) of each plane the
 step reads and writes: the bytes its kernel must move.
 
@@ -75,13 +80,16 @@ _MAX_KEYS = 64
 PACK_TILE = 1024
 SHIFT_TILE = 1024
 SCAN_TILE = 2048
+# kInvertThreads times the int32 items a thread of csrc/steps.cu: the
+# elements a block of `invert_ranks` takes (int64: half)
+INVERT_TILE = 8192
 
 # Kernel launches in this process, by function (`shard_head_ranks` and
 # `shard_pack_keys` are the kernels of `head_ranks` and `pack_keys` on one
 # shard of the global build).
 launches = {"pack_keys": 0, "shift_planes": 0, "head_ranks": 0,
             "shard_head_ranks": 0, "shard_pack_keys": 0,
-            "shard_shift_planes": 0}
+            "shard_shift_planes": 0, "invert_ranks": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -108,11 +116,16 @@ def _load(path: str) -> ctypes.CDLL:
         ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64), _P,
         _P]
+    lib.ss_invert_ranks.argtypes = [
+        _P, _P, ctypes.c_int64, ctypes.c_int, _P, _P, _P]
     for fn in (lib.ss_pack_keys, lib.ss_shift_planes, lib.ss_head_ranks,
-               lib.ss_shard_pack_keys, lib.ss_shard_shift_planes):
+               lib.ss_shard_pack_keys, lib.ss_shard_shift_planes,
+               lib.ss_invert_ranks):
         fn.restype = ctypes.c_int
     lib.ss_head_ranks_scratch_bytes.argtypes = [ctypes.c_int64]
     lib.ss_head_ranks_scratch_bytes.restype = ctypes.c_int64
+    lib.ss_invert_ranks_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
+    lib.ss_invert_ranks_scratch_bytes.restype = ctypes.c_int64
     lib.ss_steps_error_string.argtypes = [ctypes.c_int]
     lib.ss_steps_error_string.restype = ctypes.c_char_p
     return lib
@@ -403,6 +416,65 @@ def head_ranks(out):
     rank_s, count = _launch_heads("head_ranks", out[:-1], sa_s.shape[0],
                                   None, 0, sa_s.dtype, sa_s.device)
     return sa_s, rank_s, count
+
+
+# ---------------------------------------------------------------------------
+# invert_ranks
+# ---------------------------------------------------------------------------
+
+
+def _check_invert(sa_s, rank_s, out) -> None:
+    for name, t in (("sa_s", sa_s), ("rank_s", rank_s)):
+        if t.dtype not in _IDX or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 or int64 tensor, "
+                            f"got {t.dtype} of {t.dim()} dims")
+    if (sa_s.dtype != rank_s.dtype or sa_s.shape != rank_s.shape
+            or sa_s.device != rank_s.device):
+        raise ValueError("sa_s and rank_s must share one dtype, one length "
+                         "and one device")
+    if out is not None and (out.dtype != rank_s.dtype or out.dim() != 1
+                            or out.shape[0] < rank_s.shape[0]
+                            or out.device != rank_s.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous 1-D {rank_s.dtype} "
+                         f"tensor of at least {rank_s.shape[0]} slots on "
+                         f"{rank_s.device}")
+
+
+def plain_invert_ranks(sa_s, rank_s, out=None):
+    """`invert_ranks` as one PyTorch scatter, on the planes' device."""
+    _check_invert(sa_s, rank_s, out)
+    rank = torch.empty_like(rank_s) if out is None else out
+    rank[sa_s] = rank_s
+    return rank
+
+
+@spanned("ops.invert_ranks", lambda res, sa_s, rank_s, *a, **k: {
+    "reads": planes((sa_s, rank_s)), "writes": planes((rank_s,))})
+def invert_ranks(sa_s, rank_s, out=None):
+    """The text-order ranks of a sorted order: rank[sa_s[j]] = rank_s[j].
+
+    `sa_s`, a permutation of [0, n), and `rank_s` are [n] int32 or int64
+    planes of one dtype. Returns a new [n] plane of their dtype, or `out`
+    (a contiguous plane of that dtype with n slots or more) with its
+    first n slots written and the rest left as they were.
+    """
+    _check_invert(sa_s, rank_s, out)
+    if not _on_cuda(sa_s, "sa_s"):
+        return plain_invert_ranks(sa_s, rank_s, out)
+    n = sa_s.shape[0]
+    rank = torch.empty_like(rank_s) if out is None else out
+    if not n:
+        return rank
+    sa_s, rank_s = sa_s.contiguous(), rank_s.contiguous()
+    width = rank_s.element_size()
+    nbytes = load_library().ss_invert_ranks_scratch_bytes(n, width)
+    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=sa_s.device)
+               if nbytes else None)
+    _launch("invert_ranks", "ss_invert_ranks", sa_s.device, sa_s.data_ptr(),
+            rank_s.data_ptr(), n, width, rank.data_ptr(),
+            None if scratch is None else scratch.data_ptr())
+    return rank
 
 
 # ---------------------------------------------------------------------------

@@ -128,6 +128,66 @@ def test_initial_full_and_full_round_match_jax():
                                      jnp.int32, 2)
 
 
+def _invert_text() -> np.ndarray:
+    """Random bytes of 4 letters with a periodic run of 2000: three full
+    rounds, then a compaction whose invert writes into an [n + 1] buffer."""
+    text = np.random.default_rng(5).integers(0, 4, 5000, dtype=np.uint8)
+    text[1000:3000] = _u8((b"abcab" * 400))
+    return text
+
+
+def _build_inverts(build: str, idx) -> list:
+    """The (sa_s, rank_s, out) of every invert of one CPU build."""
+    seen = []
+    plain = doubling._scatter_to_text_order
+
+    def spy(sa_s, rank_s, out=None):
+        seen.append((sa_s.clone(), rank_s.clone(), out))
+        return plain(sa_s, rank_s, out)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(doubling, "_scatter_to_text_order", spy)
+    try:
+        if build == "ints":
+            seq = np.random.default_rng(8).integers(0, 3, 3000)
+            doubling.build_ints_with_isa(seq, idx=idx, device="cpu")
+        else:
+            doubling.build_with_isa(_invert_text(), idx=idx, depth=12,
+                                    device="cpu",
+                                    chunk=1000 if build == "chunk" else None)
+    finally:
+        mp.undo()
+    return seen
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("build", ["flat", "chunk", "ints"])
+def test_inverts_of_builds_match_jax_and_the_sort(build, idx):
+    """Every invert of a flat, a chunked and an integer build: the scatter
+    equals the JAX package's `_scatter_to_text_order` (a sort by sa) and
+    the 1-key sort the port ran before, element for element; the
+    compaction's [n + 1] buffer gets its first n slots and keeps slot n."""
+    inverts = _build_inverts(build, idx)
+    assert len(inverts) >= 2
+    if build != "ints":
+        # the compaction's invert writes into its [n + 1] rank buffer
+        assert inverts[-1][2] is not None
+    for sa_s, rank_s, _ in inverts:
+        n = sa_s.shape[0]
+        want = np.asarray(jdoubling._scatter_to_text_order(
+            jnp.asarray(sa_s.numpy().astype(np.int32)),
+            jnp.asarray(rank_s.numpy().astype(np.int32))))
+        got = doubling._scatter_to_text_order(sa_s, rank_s)
+        assert got.dtype == idx
+        np.testing.assert_array_equal(got.numpy(), want)
+        sorted_ = doubling.device_sort((sa_s, rank_s), num_keys=1)[1]
+        np.testing.assert_array_equal(sorted_.numpy(), want)
+        buf = torch.full((n + 1,), -7, dtype=idx)
+        assert doubling._scatter_to_text_order(sa_s, rank_s, buf) is buf
+        np.testing.assert_array_equal(buf[:n].numpy(), want)
+        assert int(buf[n]) == -7
+
+
 def _groups(rank_s: np.ndarray, sa_s: np.ndarray) -> dict:
     """Tied group head -> set of members (the order-free view)."""
     groups: dict = {}

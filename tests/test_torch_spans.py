@@ -21,6 +21,7 @@ from sabench.trace import CallLog
 from stringsearch_torch.engines import doubling
 from stringsearch_torch.harness import tracing
 from stringsearch_torch.harness.corpus import enwik_like
+from stringsearch_torch.ops import steps
 
 
 def fibonacci(n: int) -> bytes:
@@ -140,6 +141,17 @@ def test_a_profiled_build_records_its_tree(name):
         assert [s.name for s in children(records, r)] == [
             "doubling.invert", "ops.shift_planes", "ops.device_sort",
             "ops.head_ranks", "doubling.wait"]
+
+    # each invert is one `invert_ranks` scatter over the n positions, with
+    # no sort inside
+    inverts = by_name.get("doubling.invert", [])
+    assert len(inverts) == len(full) + (1 if compact else 0)
+    for inv in inverts:
+        (op,) = children(records, inv)
+        assert op.name == "ops.invert_ranks"
+        n = len(TEXTS[name])
+        assert op.attrs == {"reads": ((n, 4), (n, 4)), "writes": ((n, 4),)}
+    assert len(by_name.get("ops.invert_ranks", [])) == len(inverts)
 
     crounds = by_name.get("doubling.compact_round", [])
     assert [r.attrs["tied_out"] for r in crounds] == compact
@@ -302,12 +314,18 @@ def test_cpu_spans_carry_no_device_time_once_cuda_runs(cuda):
     assert records and all(s.device_ms is None for s in records)
     assert bench_spans.on_device(records) is False
 
+    before = steps.launches["invert_ranks"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         build(text.to(cuda))
         torch.cuda.synchronize()
     host, device = events_of(prof)
     records = tracing.records(host, device)
+    # one `invert_ranks` launch an invert
+    inverts = [s for s in records if s.name == "doubling.invert"]
+    assert inverts
+    assert steps.launches["invert_ranks"] - before == len(inverts)
+    assert all(s.device_ms > 0.0 for s in inverts)
     (b,) = [s for s in records if s.name == "doubling.build"]
     busy = sum(e - s for _, s, e in device) / 1e3
     assert bench_spans.on_device(records)

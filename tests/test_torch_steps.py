@@ -4,9 +4,11 @@
 `_pack4_keys`, `_shift_ranks` and `_ranks_sorted_only`
 (stringsearch_tpu/engines/doubling.py:83, :116, :151), on the same numpy
 inputs: random bytes, a two-letter alphabet, `b"ab" * k` and all-zero
-text, n from 1 to 4999. On the CPU each function takes its plain version.
-Every value is an integer: tolerance 0. A routing guard counts the three
-functions' calls in the builds that reach them.
+text, n from 1 to 4999; `invert_ranks` against its `_scatter_to_text_order`
+(l.105) and the 1-key sort the port ran before, on random, striped and
+reversed permutations of n from 0 to a tile and one. On the CPU each
+function takes its plain version. Every value is an integer: tolerance 0.
+A routing guard counts the functions' calls in the builds that reach them.
 
 Tests marked `cuda` hold each kernel against its plain version on the card
 and skip without one; run them with
@@ -332,14 +334,106 @@ def test_head_ranks_refuses_bad_input():
 
 
 # ---------------------------------------------------------------------------
-# routing: the builds call the three steps where their path needs them
+# invert_ranks
+# ---------------------------------------------------------------------------
+
+# n of 0, 1 and 2, and the edges of a block's tile: INVERT_TILE int32
+# elements, half as many int64
+INVERT_SIZES = (0, 1, 2, 3) + tuple(
+    t + d for t in (steps.INVERT_TILE // 2, steps.INVERT_TILE)
+    for d in (-1, 0, 1))
+ORDERS = ("random", "streams", "reversed")
+
+
+def _invert_case(order: str, n: int, idx) -> tuple:
+    """(sa_s, rank_s): a permutation of [0, n) in the named order and
+    ranks below n. "streams" is three increasing runs, every third
+    position each, as the Fibonacci word's tied groups store."""
+    g = torch.Generator().manual_seed(n)
+    if order == "random":
+        sa = torch.randperm(n, generator=g)
+    elif order == "streams":
+        sa = torch.cat([torch.arange(n)[k::3] for k in range(3)])
+    else:
+        sa = torch.arange(n - 1, -1, -1)
+    rank = torch.randint(0, max(n, 1), (n,), generator=g)
+    return sa.to(idx), rank.to(idx)
+
+
+@pytest.mark.parametrize("out", [False, True])
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", INVERT_SIZES)
+@pytest.mark.parametrize("order", ORDERS)
+def test_invert_ranks_equals_the_sort_and_jax(order, n, idx, out):
+    """rank[sa_s] = rank_s against the 1-key sort the engine ran before
+    and the JAX package's `_scatter_to_text_order`; with `out`, an
+    [n + 1] buffer whose slot n stays as it was."""
+    import jax.numpy as jnp
+
+    from stringsearch_tpu.engines import doubling as jdoubling
+
+    sa, rank = _invert_case(order, n, idx)
+    want = plain_sort((sa, rank), 1)[1]
+    jax_want = jdoubling._scatter_to_text_order(
+        jnp.asarray(_np(sa).astype(np.int32)),
+        jnp.asarray(_np(rank).astype(np.int32)))
+    np.testing.assert_array_equal(_np(want), np.asarray(jax_want))
+    buf = torch.full((n + 1,), -9, dtype=idx) if out else None
+    got = steps.invert_ranks(sa, rank, buf)
+    if out:
+        assert got is buf and int(buf[n]) == -9
+        got = got[:n]
+    assert got.dtype == idx
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+INVERT_VARIANTS = ["one store an element", "windows of 4 MB",
+                   "windows of 16 MB", "places of 32 KB"]
+
+
+@pytest.mark.parametrize("name", INVERT_VARIANTS)
+def test_invert_variants_each_change_the_steps_source_once(name):
+    """The design sweep patches the kernel's source by text; each patch
+    must still find its one place in it."""
+    from stringsearch_torch.harness import invert_variants
+
+    assert set(INVERT_VARIANTS) | {"as built"} == set(
+        invert_variants.VARIANTS)
+    with open(steps._SOURCE) as f:
+        built = f.read()
+    with open(invert_variants.variant_source(name)) as f:
+        variant = f.read()
+    assert variant != built
+    assert len(variant.splitlines()) == len(built.splitlines())
+
+
+def test_invert_ranks_refuses_bad_input():
+    sa = torch.arange(5, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        steps.invert_ranks(sa.float(), sa)
+    with pytest.raises(TypeError):
+        steps.invert_ranks(sa.view(5, 1), sa.view(5, 1))
+    with pytest.raises(ValueError):
+        steps.invert_ranks(sa, sa.long())
+    with pytest.raises(ValueError):
+        steps.invert_ranks(sa, sa[:4])
+    for out in (torch.empty(4, dtype=torch.int32),
+                torch.empty(6, dtype=torch.int64),
+                torch.empty(12, dtype=torch.int32)[::2]):
+        with pytest.raises(ValueError):
+            steps.invert_ranks(sa, sa, out)
+
+
+# ---------------------------------------------------------------------------
+# routing: the builds call the steps where their path needs them
 # ---------------------------------------------------------------------------
 
 
 @pytest.fixture
 def counted(monkeypatch):
-    """Counts the calls of the three steps made through the engine."""
-    calls = {"pack_keys": 0, "shift_planes": 0, "head_ranks": 0}
+    """Counts the calls of the steps made through the engine."""
+    calls = {"pack_keys": 0, "shift_planes": 0, "head_ranks": 0,
+             "invert_ranks": 0}
     for name in calls:
         fn = getattr(doubling, name)
 
@@ -364,6 +458,8 @@ def test_build_sa_goes_through_the_three_steps(counted, chunk):
     assert counted["shift_planes"] >= 1
     # one head_ranks after the initial sort and after every full round
     assert counted["head_ranks"] == counted["shift_planes"] + 1
+    # an invert before every full round, and one before a compaction
+    assert counted["invert_ranks"] - counted["shift_planes"] in (0, 1)
     if chunk is None:
         np.testing.assert_array_equal(_np(sa), oracle.build(data))
     else:
@@ -383,6 +479,8 @@ def test_build_ints_with_isa_goes_through_the_steps(counted):
     assert counted["shift_planes"] >= 1
     # the initial sort and every full round: one of each
     assert counted["head_ranks"] == counted["shift_planes"]
+    # before every full round but the first, and the final ISA's
+    assert counted["invert_ranks"] >= counted["shift_planes"]
     want = oracle.build(seq.astype(np.uint8).tobytes())
     np.testing.assert_array_equal(_np(sa), want)
 
@@ -530,6 +628,29 @@ def test_head_ranks_kernel_on_long_tied_runs(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out", [False, True])
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", INVERT_SIZES + (
+    (1 << 22) + 1, 1 << 23, (1 << 23) + 1, (1 << 24) + 12345))
+def test_invert_ranks_kernel_equals_plain(cuda, n, idx, out):
+    """Both designs: one store an element up to 32 MB of output (2^23
+    int32, 2^22 int64 slots), partitioned past it (2^24 + 12,345: 9
+    windows of int32, 17 of int64, the last one short)."""
+    for order in ORDERS:
+        sa, rank = (t.to(cuda) for t in _invert_case(order, n, idx))
+        buf = (torch.full((n + 1,), -9, dtype=idx, device=cuda) if out
+               else None)
+        before = steps.launches["invert_ranks"]
+        got = steps.invert_ranks(sa, rank, buf)
+        torch.cuda.synchronize()
+        assert steps.launches["invert_ranks"] == before + (1 if n else 0)
+        if out:
+            assert got is buf and int(buf[n]) == -9
+            got = got[:n]
+        _equal_planes([got], [steps.plain_invert_ranks(sa, rank)])
+
+
+@pytest.mark.cuda
 def test_steps_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         steps.pack_keys(torch.zeros(8, dtype=torch.int32, device=cuda), 12)
@@ -559,6 +680,7 @@ def test_builds_on_the_card_launch_the_three_kernels(cuda, chunk):
     assert got["pack_keys"] == 1
     assert got["shift_planes"] >= 1
     assert got["head_ranks"] == got["shift_planes"] + 1
+    assert got["invert_ranks"] - got["shift_planes"] in (0, 1)
     want = doubling.build_sa(text, depth=12, device="cpu", chunk=chunk)
     assert torch.equal(sa.cpu(), want)
     before = steps.launches["head_ranks"]
