@@ -1,4 +1,4 @@
-"""sabench: the end-to-end benchmark of stringsearch_torch on one NVIDIA H100.
+"""sabench: the end-to-end benchmark of stringsearch_torch on NVIDIA H100s.
 
     python -m sabench --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -10,7 +10,10 @@ harness is driven by data: a cell names a configuration
 `sabench/kinds/<kind>.py`); an end-to-end metric is read by
 `sabench/metrics/<name>.py` and a per-layer one by
 `sabench/layers/<name>.py`. A new cell, configuration, mix or metric is a
-new file and a new entry, never an edit.
+new file and a new entry, never an edit. A cell runs on the cards its
+`chips` asks for (cuda:0 and on); a kind that uses more than one takes
+them from `ctx.devices`, and the result reports each card's peak and
+busy time beside the fullest card's peak and the mean busy time.
 
 The yardstick lives here and nowhere in the program: the text
 generators, the plain reference that decides `correct`

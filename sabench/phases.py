@@ -29,10 +29,13 @@ READ = "aten::_local_scalar_dense"
 
 
 def gaps(tr) -> list:
-    """The idle gaps (start, end) between the busy intervals inside the
-    traced window, in us."""
-    busy = tr.busy_intervals()
-    return [(a[1], b[0]) for a, b in zip(busy, busy[1:]) if b[0] > a[1]]
+    """The idle gaps (start, end) between each card's busy intervals
+    inside the traced window, every card's together, in us."""
+    out = []
+    for card in range(tr.cards):
+        busy = tr.busy_intervals(card)
+        out += [(a[1], b[0]) for a, b in zip(busy, busy[1:]) if b[0] > a[1]]
+    return out
 
 
 def idle_by_span(records, idle) -> dict:
@@ -60,7 +63,8 @@ def idle_in_reads(tr, idle) -> tuple:
 
 def one(workload: str, seed: int) -> None:
     cell = spec.load_cell(run.ROOT, workload)
-    dev = torch.device("cuda")
+    devices = run.open_devices("cuda", cell.chips)
+    dev = devices[0]
     from sabench.program import Program
 
     program = Program()
@@ -69,9 +73,9 @@ def one(workload: str, seed: int) -> None:
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     job = cell.kind.Job(run.Context(text, cell.config, cell.traffic, seed,
-                                    program, dev))
+                                    program, dev, devices))
     tr = run.traced_window(job, program, int(cell.traffic["trace_units"]),
-                           dev)
+                           devices)
     metrics = {m.name: m.reader.read(tr) for m in cell.per_layer}
     print(f"{workload} seed {seed}: {json.dumps(metrics)}", flush=True)
     records = spans.of(tr)

@@ -45,7 +45,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "stringsearch_tpu")
 
 @dataclasses.dataclass
 class Context:
-    """What a mix's job gets: the inputs, the program and the device."""
+    """What a mix's job gets: the inputs, the program and the cards. The
+    text is made on `device`, the first of the cell's `devices`; a kind
+    that runs on more than one card shards it itself."""
 
     text: torch.Tensor
     config: dict
@@ -53,10 +55,11 @@ class Context:
     seed: int
     program: object
     device: torch.device
+    devices: list
 
     def sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for every card of the cell."""
+        trace.sync_all(self.devices)
 
 
 @dataclasses.dataclass
@@ -103,17 +106,40 @@ def forbidden_modules() -> list:
                   set(FORBIDDEN))
 
 
-def device_info(device: torch.device, peak: int) -> dict:
-    if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1,
-                "memory_peak_bytes": peak}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": 1, "memory_peak_bytes": peak}
+def open_devices(device: str, chips: int) -> list:
+    """The cell's cards: cuda:0 .. cuda:chips-1, or the CPU `chips` times
+    (a mesh may repeat a device). Cards of more than one kind are
+    refused."""
+    if torch.device(device).type != "cuda":
+        return [torch.device(device)] * chips
+    if torch.cuda.device_count() < chips:
+        raise spec.SpecError(f"{chips} CUDA card(s) asked for, "
+                             f"{torch.cuda.device_count()} visible")
+    devices = [torch.device("cuda", i) for i in range(chips)]
+    kinds = sorted({torch.cuda.get_device_name(d) for d in devices})
+    if len(kinds) > 1:
+        raise spec.SpecError(f"cards of more than one kind: {kinds}")
+    return devices
+
+
+def device_info(devices: list, peaks: list) -> dict:
+    """The result's `device`: the fullest card's peak, and each card's."""
+    platform, kind = "cpu", "cpu"
+    if devices[0].type == "cuda":
+        platform, kind = "gpu", torch.cuda.get_device_name(devices[0])
+    return {"platform": platform, "kind": kind, "count": len(devices),
+            "memory_peak_bytes": max(peaks),
+            "memory_peak_bytes_per_card": peaks}
 
 
 def _peak(device) -> int:
     return (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
+
+
+def _peaks(devices) -> list:
+    """Each card's allocator peak, in card order."""
+    return [_peak(d) for d in devices]
 
 
 def _reset_peak(device) -> None:
@@ -122,8 +148,9 @@ def _reset_peak(device) -> None:
 
 
 def timed_window(job, program, seconds: float, setup_s: float,
-                 dev) -> Window:
-    """Units back to back until `seconds` have passed."""
+                 devices) -> tuple[Window, list]:
+    """Units back to back until `seconds` have passed; the window, and
+    each card's peak over it."""
     units = []
     launches = program.sort_launches()
     cpu0, steal0 = host_times()
@@ -142,13 +169,14 @@ def timed_window(job, program, seconds: float, setup_s: float,
         f"{[round(b - a, 4) for a, b, _ in units[:5]]}; "
         f"{launches / len(units):.2f} sorts a unit; process CPU "
         f"{cpu1 - cpu0:.3f} s, host steal {steal1 - steal0:.3f} s")
-    return Window(job.kind, units, t0, t1, _peak(dev), setup_s)
+    peaks = _peaks(devices)
+    return Window(job.kind, units, t0, t1, max(peaks), setup_s), peaks
 
 
-def traced_window(job, program, units: int, dev) -> trace.Trace:
+def traced_window(job, program, units: int, devices) -> trace.Trace:
     """One unit with the program's host waits counted, then `units` units
     under the profiler with the engine's calls logged."""
-    if dev.type == "cuda":
+    if devices[0].type == "cuda":
         _, syncs = trace.count_syncs(job.unit)
     else:
         job.unit()
@@ -156,9 +184,10 @@ def traced_window(job, program, units: int, dev) -> trace.Trace:
     say(f"host waits of one unit: {len(syncs)} at {syncs}")
     with trace.CallLog() as log:
         launches = program.sort_launches()
-        _, prof = trace.profiled(lambda: [job.unit() for _ in range(units)])
+        _, prof = trace.profiled(lambda: [job.unit() for _ in range(units)],
+                                 devices)
         launches = program.sort_launches() - launches
-    return trace.read_profile(prof, kind=job.kind, units=units,
+    return trace.read_profile(prof, devices, kind=job.kind, units=units,
                               calls=log.calls, syncs=[len(syncs)],
                               sort_launches=launches)
 
@@ -176,7 +205,8 @@ def run_workload(workload: str, seed: int, seconds: float, trace_on: bool,
     cell = spec.load_cell(root, workload)
     cell.config.update(config_overrides or {})
     cell.traffic.update(traffic_overrides or {})
-    dev = torch.device(device)
+    devices = open_devices(device, cell.chips)
+    dev = devices[0]
     if program is None:
         from sabench.program import Program
 
@@ -190,9 +220,10 @@ def run_workload(workload: str, seed: int, seconds: float, trace_on: bool,
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()  # the generator's blocks, for the program
     t_job = time.perf_counter()
-    ctx = Context(text, cell.config, cell.traffic, seed, program, dev)
+    ctx = Context(text, cell.config, cell.traffic, seed, program, dev,
+                  devices)
     job = cell.kind.Job(ctx)
-    setup_peak = _peak(dev)
+    setup_peaks = _peaks(devices)
     t_end = time.perf_counter()
     setup_s = t_end - start
     parts = {"imports_s": t_kernels - start, "kernels_s": t_text - t_kernels,
@@ -200,11 +231,12 @@ def run_workload(workload: str, seed: int, seconds: float, trace_on: bool,
     say(f"{workload}: set-up {setup_s:.3f} s ("
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
         + f"), text {text.numel()} B")
-    _reset_peak(dev)
+    for d in dict.fromkeys(devices):
+        _reset_peak(d)
 
     result_metrics, breakdown, device_extra = {}, None, {}
     if not trace_on:
-        window = timed_window(job, program, seconds, setup_s, dev)
+        window, peaks = timed_window(job, program, seconds, setup_s, devices)
         for m in cell.end_to_end:
             value = m.reader.read(window)
             if value is None:
@@ -213,15 +245,18 @@ def run_workload(workload: str, seed: int, seconds: float, trace_on: bool,
             result_metrics[m.name] = {"value": value, "unit": m.unit}
     else:
         tr = traced_window(job, program, int(cell.traffic["trace_units"]),
-                           dev)
+                           devices)
         for m in cell.per_layer:
             value = m.reader.read(tr)
             if value is not None:
                 result_metrics[m.name] = {"value": value, "unit": m.unit}
         breakdown = tr.breakdown()
         device_extra = {"busy_s": tr.busy_us() * 1e-6,
+                        "busy_s_per_card": [b * 1e-6 for b in
+                                            tr.busy_us_per_card()],
                         "window_s": tr.window_us * 1e-6}
-    peak = max(setup_peak, _peak(dev))
+        peaks = _peaks(devices)
+    peaks = [max(s, w) for s, w in zip(setup_peaks, peaks)]
 
     job.release()
     del program
@@ -235,7 +270,7 @@ def run_workload(workload: str, seed: int, seconds: float, trace_on: bool,
                and all(v <= lim for v, lim in checks.values()))
     result = {"correct": correct, "attempted": attempted, "failed": failed,
               "metrics": result_metrics,
-              "device": {**device_info(dev, peak), **device_extra}}
+              "device": {**device_info(devices, peaks), **device_extra}}
     if breakdown is not None:
         result["breakdown"] = breakdown
     result["setup_parts"] = parts

@@ -61,6 +61,7 @@ class Cell:
     """One workload of `BENCHMARK.json` with every piece it names."""
 
     name: str
+    chips: int
     config: dict
     traffic: dict
     generator: ModuleType
@@ -109,5 +110,8 @@ def load_cell(root: str, workload: str) -> Cell:
     e2e = _cell_metrics(bench.get("end_to_end", []), workload)
     layers = _cell_metrics(bench.get("per_layer", []), workload,
                            {e["name"] for e in e2e})
-    return Cell(workload, config, traffic, generator, kind,
+    chips = w.get("chips", 1)
+    if not isinstance(chips, int) or chips < 1:
+        raise SpecError(f"{workload}: bad chips {chips!r}")
+    return Cell(workload, chips, config, traffic, generator, kind,
                 metrics(e2e, "metrics"), metrics(layers, "layers"))

@@ -7,7 +7,9 @@ are `stringsearch_torch/harness/profile_build.py:_short` and
 `_kernel_sums`; `count_syncs` is its `_syncs`. The idle share is taken
 from the union of the device's busy intervals inside the traced window,
 not from summed kernel time, which overlapping kernels push past the
-window (profile_build's arithmetic read -0.0011 and -0.0019).
+window (profile_build's arithmetic read -0.0011 and -0.0019). On a cell
+of k cards each card's union is taken apart: busy and idle are
+card-seconds, and the busy time reported is the mean over the cards.
 """
 
 from __future__ import annotations
@@ -47,15 +49,27 @@ class Trace:
     calls: list  # (program function, bytes its kernel must move)
     syncs: list  # host waits of each counted unit
     sort_launches: int  # the program's radix sorts over the traced units
+    # each device op's card, as its place (0 .. cards - 1) among the
+    # cell's cards; None: every op on the one card
+    device_cards: list | None = None
+    cards: int = 1
 
     @property
     def window_us(self) -> float:
         return self.window[1] - self.window[0]
 
-    def busy_intervals(self) -> list:
-        """The union of device busy intervals, clipped to the window."""
+    def _card_ops(self, card) -> list:
+        if card is None or self.device_cards is None:
+            return self.device_ops if card in (None, 0) else []
+        return [op for op, c in zip(self.device_ops, self.device_cards)
+                if c == card]
+
+    def busy_intervals(self, card: int | None = None) -> list:
+        """The union of a card's busy intervals (with None, of every
+        card's together), clipped to the window."""
         w0, w1 = self.window
-        spans = sorted((max(s, w0), min(e, w1)) for _, s, e in self.device_ops
+        spans = sorted((max(s, w0), min(e, w1))
+                       for _, s, e in self._card_ops(card)
                        if e > w0 and s < w1)
         out = []
         for s, e in spans:
@@ -65,8 +79,15 @@ class Trace:
                 out.append([s, e])
         return out
 
+    def busy_us_per_card(self) -> list:
+        """Each card's busy time in the window, in card order."""
+        return [sum(e - s for s, e in self.busy_intervals(c))
+                for c in range(self.cards)]
+
     def busy_us(self) -> float:
-        return sum(e - s for s, e in self.busy_intervals())
+        """The mean over the cards of each card's busy time."""
+        per = self.busy_us_per_card()
+        return sum(per) / len(per)
 
     def device_time_us(self, pattern: str) -> float:
         """Summed device time of the kernels whose name matches."""
@@ -88,18 +109,21 @@ class Trace:
     def breakdown(self, top: int = 10) -> dict:
         """The device operations that took most time, and the idle time by
         what the host was doing (the innermost host events across each
-        gap's middle), in seconds, at most `top` of each."""
+        gap's middle), each card's gaps summed, in seconds, at most `top`
+        of each."""
         per = defaultdict(float)
         for name, s, e in self.device_ops:
             per[name] += (e - s) * 1e-6
         gaps = defaultdict(float)
-        busy = self.busy_intervals()
         w0, w1 = self.window
-        edges = [w0] + [x for iv in busy for x in iv] + [w1]
         starts = [h[1] for h in self.host_ops]
-        for g0, g1 in zip(edges[0::2], edges[1::2]):
-            if g1 > g0:
-                gaps[self._host_at((g0 + g1) / 2, starts)] += (g1 - g0) * 1e-6
+        for card in range(self.cards):
+            busy = self.busy_intervals(card)
+            edges = [w0] + [x for iv in busy for x in iv] + [w1]
+            for g0, g1 in zip(edges[0::2], edges[1::2]):
+                if g1 > g0:
+                    gaps[self._host_at((g0 + g1) / 2, starts)] += (
+                        (g1 - g0) * 1e-6)
         order = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:top]
         return {"device_ops": [[k, v] for k, v in order(per)],
                 "idle_gaps": [[k, v] for k, v in order(gaps)]}
@@ -117,9 +141,17 @@ class Trace:
         return " > ".join(name for _, name in inside[-2:])
 
 
-def profiled(fn):
-    """Run fn() under the profiler, inside the window span; returns
-    (fn's result, the profiler)."""
+def sync_all(devices) -> None:
+    """Wait for each CUDA card among `devices` (a mesh may repeat one)."""
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def profiled(fn, devices):
+    """Run fn() under the profiler, inside the window span, and wait for
+    every card of `devices` before the profiler closes; returns (fn's
+    result, the profiler)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
@@ -128,14 +160,18 @@ def profiled(fn):
     with profile(activities=activities) as prof:
         with record_function(WINDOW):
             out = fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        sync_all(devices)
     return out, prof
 
 
-def read_profile(prof, **fields) -> Trace:
-    """The Trace of a profiler run made by `profiled`."""
-    device, host, window = [], [], None
+def read_profile(prof, devices, **fields) -> Trace:
+    """The Trace of a profiler run made by `profiled`, each device op on
+    its card's place among the cell's `devices`."""
+    device, cards, host, window = [], [], [], None
+    place = {}
+    for i, d in enumerate(devices):
+        if d.type == "cuda":
+            place.setdefault(d.index, i)
     for e in prof.events():
         start, end = e.time_range.start, e.time_range.end
         if e.name == WINDOW:
@@ -143,13 +179,18 @@ def read_profile(prof, **fields) -> Trace:
             if not str(e.device_type).endswith("CUDA"):
                 window = (start, end)
         elif str(e.device_type).endswith("CUDA"):
+            if e.device_index not in place:
+                raise RuntimeError(f"{e.name} ran on card {e.device_index}, "
+                                   f"not one of the cell's {devices}")
             device.append((short_name(e.name), start, end))
+            cards.append(place[e.device_index])
         elif e.name not in _PROFILER_OWN:
             host.append((e.name, start, end))
     host.sort(key=lambda h: h[1])
     if window is None:
         raise RuntimeError("the profiler recorded no window span")
-    return Trace(window=window, device_ops=device, host_ops=host, **fields)
+    return Trace(window=window, device_ops=device, host_ops=host,
+                 device_cards=cards, cards=len(devices), **fields)
 
 
 def count_syncs(fn) -> tuple[object, list]:
