@@ -443,10 +443,13 @@ def device_sort(operands, num_keys: int = 1) -> tuple:
 def sort_span(operands: tuple, num_keys: int):
     """The span `ops.device_sort` of a sort of `operands` by `num_keys`
     (`harness/tracing.py`), with its attributes: the length `n`,
-    `num_keys` and `itemsizes`, the bytes an element of each plane. A
-    sort moves each plane in and out once, 2 n sum(itemsizes) bytes."""
+    `num_keys`, `itemsizes`, the bytes an element of each plane, and
+    `card`, the CUDA index of the planes' device (None off CUDA). A sort
+    moves each plane in and out once, 2 n sum(itemsizes) bytes."""
     sp = span("ops.device_sort")
     if sp:
+        device = operands[0].device
         sp.set(n=int(operands[0].shape[0]), num_keys=num_keys,
-               itemsizes=tuple(op.element_size() for op in operands))
+               itemsizes=tuple(op.element_size() for op in operands),
+               card=device.index if device.type == "cuda" else None)
     return sp

@@ -8,6 +8,10 @@ the two [L] chunks and sorts all 2L elements with `lax.sort`; XLA has no
 merge. `merge_split` merges them in one pass of `csrc/merge.cu` and writes
 the kept half only. None of it replaces a Pallas kernel.
 
+`merge_split` runs inside the span `ops.merge_split`
+(`harness/tracing.py`), whose attributes `reads` and `writes` give
+(elements, bytes an element) of both runs' planes and of the kept half's.
+
 CPU tensors go to `plain_merge_split`, the concatenation and stable sort
 that `_merge_halves` ran before; CUDA tensors to the kernel, which raises
 on a type, shape or launch error. There is no other route and no fallback.
@@ -21,6 +25,7 @@ import threading
 
 import torch
 
+from stringsearch_torch.harness.tracing import planes, spanned
 from stringsearch_torch.ops import _build
 from stringsearch_torch.ops.bitonic import plain_sort
 
@@ -117,6 +122,8 @@ def plain_merge_split(mine, theirs, mine_first: bool, keep_low: bool,
     return tuple(m[half].clone() for m in merged)
 
 
+@spanned("ops.merge_split", lambda out, mine, theirs, *a, **k: {
+    "reads": planes((*mine, *theirs)), "writes": planes(out)})
 def merge_split(mine, theirs, mine_first: bool, keep_low: bool,
                 num_keys: int) -> tuple:
     """One half of the stable merge of two sorted runs.

@@ -25,6 +25,13 @@ MAX_PLANES operands; the wrappers make their calls as `launch_plan` says:
 a range of buckets at a time and, in each, a group of operands at a time,
 the range's first call running its count and scan for the later ones.
 
+Each runs inside a span of its name (`ops.route_partition`,
+`ops.place_received`; `harness/tracing.py`) whose attributes `reads` and
+`writes` give (elements, bytes an element) of each plane it takes and
+gives: for `route_partition` the operands (and `src` where it is not the
+first) and the [p, cap] buffers, for `place_received` the received
+buffers and the [length] outputs.
+
 CPU tensors go to the plain versions, which are the chain of PyTorch ops
 the distributed sort ran before (`plain_route_partition` sorts by
 destination with `device_sort`, which is stable); CUDA tensors to the
@@ -41,6 +48,8 @@ import threading
 
 import torch
 
+from stringsearch_torch.harness.tracing import planes as span_planes
+from stringsearch_torch.harness.tracing import spanned
 from stringsearch_torch.ops import _build
 
 _SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "route.cu")
@@ -250,6 +259,13 @@ def plain_route_partition(src, length: int, p: int, planes, fills,
     return tuple(sends), over
 
 
+def _route_attrs(out, src, length, p, planes, *args, **kwargs) -> dict:
+    inputs = tuple(planes) if planes and planes[0] is src else (
+        src, *planes)
+    return {"reads": span_planes(inputs), "writes": span_planes(out[0])}
+
+
+@spanned("ops.route_partition", _route_attrs)
 def route_partition(src, length: int, p: int, planes, fills, cap: int,
                     clamp: bool = False, windows: int = 1) -> tuple:
     """The [p, cap] all_to_all send buffers of one shard's operands.
@@ -361,6 +377,8 @@ def plain_place_received(recv_g, recvs, length: int,
     return tuple(outs)
 
 
+@spanned("ops.place_received", lambda outs, recv_g, recvs, *a, **k: {
+    "reads": span_planes((recv_g, *recvs)), "writes": span_planes(outs)})
 def place_received(recv_g, recvs, length: int, windows: int = 1) -> tuple:
     """The receive side of the permutation route: out[recv_g % length] =
     recv for every entry whose recv_g is >= 0, for each received operand

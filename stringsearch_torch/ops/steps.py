@@ -41,11 +41,14 @@ type, shape or launch error. There is no other route and no fallback.
 turns with the kernels, to measure what the kernels save; nothing else
 runs them there.
 
-`pack_keys`, `shift_planes`, `head_ranks` and `invert_ranks` each run
-inside a span of their name (`ops.pack_keys`, ...; `harness/tracing.py`)
-whose attributes
-`reads` and `writes` give (elements, bytes an element) of each plane the
-step reads and writes: the bytes its kernel must move.
+`pack_keys`, `shift_planes`, `head_ranks` and `invert_ranks`, and the
+global build's `shard_pack_keys`, `shard_shift_planes` and
+`shard_head_ranks`, each run inside a span of their name (`ops.pack_keys`,
+...; `harness/tracing.py`) whose attributes `reads` and `writes` give
+(elements, bytes an element) of each plane the step reads and writes: the
+bytes its kernel must move (of a shard shift's windows, the parts it
+reads; of `shard_pack_keys`, the chunk, then the halo where there is
+one).
 
 `segment_heads`, `heads_and_tied` and `last_flagged` (the
 cumsum-and-scatter form of the reference's `cummax`) stay plain: the
@@ -537,6 +540,8 @@ def plain_shard_head_ranks(keys, prev, offset: int, idx) -> tuple:
     return heads, count
 
 
+@spanned("ops.shard_head_ranks", lambda res, keys, *a, **k: {
+    "reads": planes(keys), "writes": planes(res[:1])})
 def shard_head_ranks(keys, prev, offset: int, idx) -> tuple:
     """Head-slot ranking of one shard of a sorted global order: what
     `head_ranks` computes for a whole order, with the shard's boundary.
@@ -598,6 +603,9 @@ def plain_shard_pack_keys(chunk, halo, depth: int, offset: int,
     return (*keys, pos)
 
 
+@spanned("ops.shard_pack_keys", lambda out, chunk, halo, *a, **k: {
+    "reads": planes((chunk,) if halo is None else (chunk, halo)),
+    "writes": planes(out)})
 def shard_pack_keys(chunk, halo, depth: int, offset: int, idx=_I32) -> tuple:
     """The operands of the global build's initial sort on one shard.
 
@@ -687,6 +695,21 @@ def plain_shard_shift_planes(windows, length: int, offset: int, n_pad: int,
     return out + [gidx]
 
 
+def _window_reads(windows, length: int) -> tuple:
+    """(elements, bytes an element) of each part of the windows a shard
+    shift reads: [h % length, length) of each head and [0, h % length) of
+    each tail it is given."""
+    out = []
+    for h, head, tail in windows:
+        r = int(h) % length
+        for t, n in ((head, length - r), (tail, r)):
+            if t is not None and n:
+                out.append((n, t.element_size()))
+    return tuple(out)
+
+
+@spanned("ops.shard_shift_planes", lambda out, windows, length, *a, **k: {
+    "reads": _window_reads(windows, length), "writes": planes(out)})
 def shard_shift_planes(windows, length: int, offset: int, n_pad: int, idx,
                        device) -> list:
     """[rank shifted by h for each window] + [the global positions], on

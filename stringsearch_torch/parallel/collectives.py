@@ -35,11 +35,11 @@ device tensors, on the process's own device. The backend is the caller's
 choice; nothing switches from one to the other.
 
 Copies. A tensor bound for another device moves with
-`tensor.to(device, non_blocking=True)`. On the same device `ppermute`
-hands the receiver the sender's own tensor, without a copy; `all_to_all`
-always builds new buffers (one concatenation per receiver); `psum`,
-`pmin` and `all_gather` build one result per distinct device of the
-process, shared by its shards there. No caller in the layer writes in
+`tensor.to(device, non_blocking=True)` (`moved`). On the same device
+`ppermute` hands the receiver the sender's own tensor, without a copy;
+`all_to_all` always builds new buffers (one concatenation per receiver);
+`psum`, `pmin` and `all_gather` build one result per distinct device of
+the process, shared by its shards there. No caller in the layer writes in
 place into what a collective returned, so the shared buffers are safe: the
 call sites that rely on it are every `ppermute` in `distsort.py`
 (merge-split partners, boundary values), `global_sa.py` (the initial
@@ -57,6 +57,16 @@ host seconds spent moving them (staging copies and `torch.distributed`
 calls, waits included). On nccl a call returns once its transfers are
 queued on the device's stream, so there `transport_s` is the host's
 enqueue time, not the transfers'. `reset_traffic()` zeroes all three.
+
+Spans (`harness/tracing.py`, recorded only under a profiler). Each call
+runs in a span: `coll.ppermute`, `coll.all_to_all`, `coll.all_gather` and
+`coll.reduce` (psum and pmin, attribute `op`). Its attributes are `kind`,
+the kind its bytes are filed under in `sent`; `sent`, {shard: the bytes
+the shard sent in the call}, what the call added to `sent`; and `copies`,
+one (source card, destination card, bytes) for each copy between two
+devices the call made, in order (`moved`): the bytes that left a card.
+A single controller's copies run on the source card's stream, so a
+reader of the profiler's trace finds each there, in that order.
 """
 
 from __future__ import annotations
@@ -67,6 +77,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from stringsearch_torch.harness.tracing import span
 
 KINDS = ("ppermute", "all_to_all", "boundary", "all_gather", "reduce")
 BACKENDS = ("gloo", "nccl")
@@ -191,6 +203,43 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
+def _card(device) -> int | None:
+    """The CUDA index of `device`, None off CUDA: a span attribute."""
+    return device.index if device.type == "cuda" else None
+
+
+def moved(x: torch.Tensor, device, sp=None) -> torch.Tensor:
+    """`x` on `device` (`x` itself where it lies there already; a
+    non-blocking copy otherwise). While span `sp` records, a copy between
+    two devices appends (source card, destination card, bytes) to its
+    `copies` attribute, in the order the copies were made: on CUDA the
+    copy runs on the source card's stream."""
+    if sp and x.device != device and x.numel():
+        sp.attrs.setdefault("copies", []).append(
+            (_card(x.device), _card(torch.device(device)), _nbytes(x)))
+    return x.to(device, non_blocking=True)
+
+
+def _count(kind: str, shard: int, nbytes: int, sp) -> None:
+    """Add `nbytes` to `sent[kind][shard]`, and to span `sp`'s `sent`
+    attribute (bytes each shard sent in this call) while it records."""
+    sent[kind][shard] += nbytes
+    if sp:
+        per = sp.attrs.setdefault("sent", {})
+        per[shard] = per.get(shard, 0) + nbytes
+
+
+def _collective(name: str, kind: str):
+    """Span `name` of one collective call, `kind` its bytes' kind in
+    `sent`. Its attributes: `kind`, `sent` ({shard: bytes it sent in the
+    call}, as `sent` counts them, self-sends included) and `copies` (the
+    copies between two devices, `moved`); off, the shared no-op span."""
+    sp = span(name)
+    if sp:
+        sp.set(kind=kind, sent={}, copies=[])
+    return sp
+
+
 def _timed(fn):
     global transport_s
     t0 = time.perf_counter()
@@ -234,8 +283,14 @@ def ppermute(xs: Sequence[torch.Tensor], perm, boundary: bool = False
     """`jax.lax.ppermute`: shard dst receives shard src's tensor for each
     (src, dst) in `perm`; a shard that receives nothing gets zeros of its
     own tensor's shape and dtype. `boundary` files the bytes under
-    "boundary" (O(1) values the comm model leaves out)."""
+    "boundary" (O(1) values the comm model leaves out). In the span
+    `coll.ppermute` (`_collective`)."""
     kind = "boundary" if boundary else "ppermute"
+    with _collective("coll.ppermute", kind) as sp:
+        return _ppermute(xs, perm, kind, sp)
+
+
+def _ppermute(xs, perm, kind: str, sp) -> list:
     p = len(xs)
     out = [None] * p
     if not _spread(xs):
@@ -245,8 +300,8 @@ def ppermute(xs: Sequence[torch.Tensor], perm, boundary: bool = False
                 f"ppermute {src}->{dst}: {tuple(xs[src].shape)} "
                 f"{xs[src].dtype} into {tuple(xs[dst].shape)} "
                 f"{xs[dst].dtype}")
-            out[dst] = xs[src].to(xs[dst].device, non_blocking=True)
-            sent[kind][src] += _nbytes(xs[src])
+            out[dst] = moved(xs[src], xs[dst].device, sp)
+            _count(kind, src, _nbytes(xs[src]), sp)
         return [torch.zeros_like(x) if o is None else o
                 for x, o in zip(xs, out)]
     owners = _t().owners
@@ -254,9 +309,9 @@ def ppermute(xs: Sequence[torch.Tensor], perm, boundary: bool = False
     for src, dst in perm:
         tag = src * p + dst
         if xs[src] is not None:
-            sent[kind][src] += _nbytes(xs[src])
+            _count(kind, src, _nbytes(xs[src]), sp)
             if xs[dst] is not None:
-                out[dst] = xs[src].to(xs[dst].device, non_blocking=True)
+                out[dst] = moved(xs[src], xs[dst].device, sp)
             else:
                 sends.append((owners[dst], tag, xs[src]))
         elif xs[dst] is not None:
@@ -270,7 +325,8 @@ def ppermute(xs: Sequence[torch.Tensor], perm, boundary: bool = False
 def all_to_all(xs: Sequence[torch.Tensor]) -> list:
     """`jax.lax.all_to_all(x, split_axis=0, concat_axis=0, tiled=True)`:
     every shard splits its tensor into len(xs) equal blocks along axis 0;
-    shard d receives block d of every shard, concatenated in shard order."""
+    shard d receives block d of every shard, concatenated in shard order.
+    In the span `coll.all_to_all` (`_collective`)."""
     p = len(xs)
     mine = local_parts(xs)
     shape = xs[mine[0]].shape
@@ -279,21 +335,21 @@ def all_to_all(xs: Sequence[torch.Tensor]) -> list:
         raise ValueError(f"all_to_all needs equal shapes with axis 0 "
                          f"divisible by {p}")
     blk = rows // p
-    for s in mine:
-        sent["all_to_all"][s] += _nbytes(xs[s])
-    if len(mine) == p:
-        return [torch.cat([x[d * blk:(d + 1) * blk].to(xs[d].device,
-                                                        non_blocking=True)
-                           for x in xs]) for d in range(p)]
-    owners = _t().owners
-    sends = [(owners[d], s * p + d, xs[s][d * blk:(d + 1) * blk])
-             for s in mine for d in range(p) if xs[d] is None]
-    recvs = [(owners[s], s * p + d, xs[d][s * blk:(s + 1) * blk])
-             for d in mine for s in range(p) if xs[s] is None]
-    got = _p2p(sends, recvs)
-    return each(xs, lambda d: torch.cat([
-        xs[s][d * blk:(d + 1) * blk].to(xs[d].device, non_blocking=True)
-        if xs[s] is not None else got[s * p + d] for s in range(p)]))
+    with _collective("coll.all_to_all", "all_to_all") as sp:
+        for s in mine:
+            _count("all_to_all", s, _nbytes(xs[s]), sp)
+        if len(mine) == p:
+            return [torch.cat([moved(x[d * blk:(d + 1) * blk], xs[d].device,
+                                     sp) for x in xs]) for d in range(p)]
+        owners = _t().owners
+        sends = [(owners[d], s * p + d, xs[s][d * blk:(d + 1) * blk])
+                 for s in mine for d in range(p) if xs[d] is None]
+        recvs = [(owners[s], s * p + d, xs[d][s * blk:(s + 1) * blk])
+                 for d in mine for s in range(p) if xs[s] is None]
+        got = _p2p(sends, recvs)
+        return each(xs, lambda d: torch.cat([
+            moved(xs[s][d * blk:(d + 1) * blk], xs[d].device, sp)
+            if xs[s] is not None else got[s * p + d] for s in range(p)]))
 
 
 def _per_device(devices, make):
@@ -338,13 +394,13 @@ def _gather_remote(xs: Sequence[torch.Tensor]) -> list:
     return out
 
 
-def _gathered(xs, kind: str, combine) -> list:
+def _gathered(xs, kind: str, combine, sp) -> list:
     for s in local_parts(xs):
-        sent[kind][s] += _nbytes(xs[s])
+        _count(kind, s, _nbytes(xs[s]), sp)
     devices = [None if x is None else x.device for x in xs]
     if not _spread(xs):
         return _per_device(devices, lambda dev: combine(
-            [x.to(dev, non_blocking=True) for x in xs]))
+            [moved(x, dev, sp) for x in xs]))
     everyone = _gather_remote(xs)
     return _per_device(devices, lambda dev: combine(
         [x.to(dev, non_blocking=True) for x in everyone]))
@@ -352,27 +408,38 @@ def _gathered(xs, kind: str, combine) -> list:
 
 def all_gather(xs: Sequence[torch.Tensor], tiled: bool = False) -> list:
     """`jax.lax.all_gather`: every shard gets every shard's tensor, stacked
-    on a new axis 0 (concatenated along axis 0 when `tiled`)."""
-    return _gathered(xs, "all_gather", torch.cat if tiled else torch.stack)
+    on a new axis 0 (concatenated along axis 0 when `tiled`). In the span
+    `coll.all_gather` (`_collective`)."""
+    with _collective("coll.all_gather", "all_gather") as sp:
+        return _gathered(xs, "all_gather", torch.cat if tiled else torch.stack,
+                         sp)
 
 
 def _reduced(xs, local_op, op_name: str) -> list:
     """A reduction: the single-controller body, or a local reduction over
     this process's shards and an `all_reduce` across processes (bool
-    carried as int32: NCCL and gloo treat bool differently)."""
+    carried as int32: NCCL and gloo treat bool differently). In the span
+    `coll.reduce` (`_collective`, attribute `op`)."""
+    with _collective("coll.reduce", "reduce") as sp:
+        if sp:
+            sp.set(op=op_name)
+        return _reduce(xs, local_op, op_name, sp)
+
+
+def _reduce(xs, local_op, op_name: str, sp) -> list:
     for s in local_parts(xs):
-        sent["reduce"][s] += _nbytes(xs[s])
+        _count("reduce", s, _nbytes(xs[s]), sp)
     devices = [None if x is None else x.device for x in xs]
     if not _spread(xs):
         return _per_device(devices, lambda dev: local_op(
-            [x.to(dev, non_blocking=True) for x in xs]))
+            [moved(x, dev, sp) for x in xs]))
     import torch.distributed as dist
 
     global crossed
     t = _t()
     mine = [xs[s] for s in local_parts(xs)]
     dtype = mine[0].dtype
-    part = local_op([x.to(mine[0].device) for x in mine])
+    part = local_op([moved(x, mine[0].device, sp) for x in mine])
     wire = t.outbound(part.to(torch.int32) if dtype == torch.bool else part)
     crossed += _nbytes(wire) * (t.world - 1)
     _timed(lambda: dist.all_reduce(wire, getattr(dist.ReduceOp, op_name)))

@@ -50,6 +50,14 @@ What differs from the JAX package, and why:
   * A merge-split stage merges the two sorted chunks (`merge_split`)
     where the JAX package sorts their concatenation again: the same half,
     element for element, on the same device.
+
+Spans (`harness/tracing.py`, recorded only under a profiler):
+`distsort.sharded_sort`, `global.redistribute` (`redistribute_permutation`)
+and `distsort.rank_interval_sort` hold a call each, with the attribute
+`fell_back` where a route fell back to the merge-split sort;
+`distsort.recv_sort` holds `rank_interval_sort`'s local sorts of the
+receive buffers (p * cap rows a shard); `global.wait` holds each host read
+of a replicated flag or count (`host_flag`, the boundary counts).
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from typing import Sequence
 
 import torch
 
+from stringsearch_torch.harness.tracing import span, wait_span
 from stringsearch_torch.ops.bitonic import device_sort
 from stringsearch_torch.ops.merge import merge_split
 from stringsearch_torch.ops.route import (
@@ -90,8 +99,9 @@ def _by_operand(per_shard) -> tuple:
 
 def host_flag(flags) -> bool:
     """The host value of a replicated flag (one sync), read at a local
-    shard."""
-    return bool(coll.first_local(flags))
+    shard, in the span `global.wait`."""
+    with wait_span("global.wait"):
+        return bool(coll.first_local(flags))
 
 
 def _merge_halves(mine, theirs, mine_first: bool, keep_low: bool,
@@ -116,8 +126,14 @@ def sharded_sort(operands: Sequence, num_keys: int = 1) -> tuple:
     [P*L] array. After the call, the concatenation of the shards is sorted
     lexicographically by the key operands; value operands are permuted
     alongside. Make keys unique (a position operand as the last key) when
-    the order of equal key tuples matters.
+    the order of equal key tuples matters. In the span
+    `distsort.sharded_sort`.
     """
+    with span("distsort.sharded_sort"):
+        return _sharded_sort(operands, num_keys)
+
+
+def _sharded_sort(operands, num_keys: int) -> tuple:
     operands = tuple(list(op) for op in operands)
     p = len(operands[0])
     operands = _by_operand(coll.each(operands[0], lambda me: device_sort(
@@ -192,8 +208,14 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
     gidx. The receivers place every element at gidx % L
     (`place_received`, a window at a time), so the result does not depend
     on that order, and the pairs' counts, the overflow flag and the bytes
-    sent are the same.
+    sent are the same. In the span `global.redistribute` (`fell_back` on a
+    fallback).
     """
+    with span("global.redistribute") as sp:
+        return _redistribute(gidx, operands, cap_factor, sp)
+
+
+def _redistribute(gidx, operands, cap_factor: int, sp) -> tuple:
     gidx = list(gidx)
     operands = tuple(list(op) for op in operands)
     p = len(gidx)
@@ -212,6 +234,7 @@ def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
     if host_flag(over):
         del sends
         fallbacks["redistribute"] += 1
+        sp.set(fell_back=True)
         return sharded_sort((gidx,) + operands, num_keys=1)[1:]
 
     sends = list(sends)
@@ -245,8 +268,16 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
     group larger than cap straddling a shard boundary overflows it).
 
     Returns the operands globally sorted by the first `num_keys` (ties in
-    any order unless the key tuple is unique).
+    any order unless the key tuple is unique). In the span
+    `distsort.rank_interval_sort` (`fell_back` on a fallback), its local
+    sorts in `distsort.recv_sort`.
     """
+    with span("distsort.rank_interval_sort") as sp:
+        return _rank_interval_sort(operands, num_keys, cap_factor, sp)
+
+
+def _rank_interval_sort(operands, num_keys: int, cap_factor: int, sp
+                        ) -> tuple:
     operands = tuple(list(op) for op in operands)
     p = len(operands[0])
     length = coll.first_local(operands[0]).shape[0]
@@ -268,6 +299,7 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
     if host_flag(over):
         del sends
         fallbacks["rank_interval"] += 1
+        sp.set(fell_back=True)
         return sharded_sort(operands, num_keys=num_keys)
 
     # receive buffer = p * cap rows (every pair at full capacity); pads
@@ -278,17 +310,19 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
         recv = coll.all_to_all(sends.pop(0))
         recvs.append(coll.each(recv, lambda me: recv[me].reshape(-1)))
     srt2 = [None] * p
-    for me in coll.local_parts(recvs[0]):
-        srt2[me] = device_sort(_local(recvs, me), max(num_keys, 1))
-        for col in recvs:
-            col[me] = None
+    with span("distsort.recv_sort"):
+        for me in coll.local_parts(recvs[0]):
+            srt2[me] = device_sort(_local(recvs, me), max(num_keys, 1))
+            for col in recvs:
+                col[me] = None
     del recvs
     n_valid = coll.each(srt2, lambda me: (srt2[me][0] != sent).sum())
     prefix = exclusive_shard_offset(n_valid)
     # every shard's valid count and head deficit, read at once
-    nv, pre = zip(*coll.first_local(coll.all_gather(coll.each(
-        n_valid, lambda me: torch.stack([n_valid[me], prefix[me]])
-    ))).tolist())
+    counts = coll.first_local(coll.all_gather(coll.each(
+        n_valid, lambda me: torch.stack([n_valid[me], prefix[me]]))))
+    with wait_span("global.wait"):
+        nv, pre = zip(*counts.tolist())
     oh = [pre[me] - me * length for me in range(p)]  # my head deficit
     spill = [pre[me] + nv[me] - (me + 1) * length  # my tail spill
              for me in range(p)]
@@ -296,6 +330,7 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
     if any(not (0 <= x <= cap) for x in oh + spill):
         del srt2
         fallbacks["rank_interval_boundary"] += 1
+        sp.set(fell_back=True)
         return sharded_sort(operands, num_keys=num_keys)
 
     perm = [(t, (t + 1) % p) for t in range(p)]

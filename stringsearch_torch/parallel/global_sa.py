@@ -74,6 +74,20 @@ What differs from the JAX package, and why:
   * Where a sort's keys tie (the initial sort orders equal key windows
     in any order), intermediate positions may differ from JAX's inside a
     tie; the ranks, the final SA and every answer are the same.
+
+Spans (`harness/tracing.py`, recorded only under a profiler): a build is
+`global.build`, whose attributes at its end are the build's fallbacks
+(`fallbacks`, `distsort.fallbacks` by cause, and `compact_fallbacks`);
+inside it `global.place` (the padded text's shards put on their devices,
+with the copies between devices, as `collectives.moved` records them),
+`global.initial` (`tied`), `global.round` for each full round that runs
+(`n`, the slots its sort carries; `tied_in`; `tied_out`; `fell_back`,
+True where one of its routes fell back to the merge-split sort) and
+`global.compact_round` for each compacted round (`m`, the slots of every
+shard's working set, 2 M a shard; `tied_in`; `tied_out`; `fell_back`,
+True where it fell back to a full-width round), and `global.wait` around
+each host read of the tied count. The distributed sorts, collectives and
+steps below record their own (`distsort.py`, `collectives.py`, `ops/`).
 """
 
 from __future__ import annotations
@@ -85,6 +99,7 @@ import torch
 
 from stringsearch_torch.core import compare as cmp
 from stringsearch_torch.core.types import BytesLike, as_text_tensor
+from stringsearch_torch.harness.tracing import span, wait_span
 from stringsearch_torch.ops.bitonic import device_sort
 from stringsearch_torch.ops.steps import (
     last_flagged,
@@ -93,6 +108,7 @@ from stringsearch_torch.ops.steps import (
     shard_shift_planes,
 )
 from stringsearch_torch.parallel import collectives as coll
+from stringsearch_torch.parallel import distsort
 from stringsearch_torch.parallel.distsort import (
     host_flag,
     rank_interval_sort,
@@ -124,6 +140,13 @@ compact_fallbacks = 0
 
 def _global_iota(me: int, chunk_len: int, idx, device) -> torch.Tensor:
     return me * chunk_len + torch.arange(chunk_len, dtype=idx, device=device)
+
+
+def _read_tied(count) -> int:
+    """The replicated tied count on the host (one sync), in the span
+    `global.wait`."""
+    with wait_span("global.wait"):
+        return int(coll.first_local(count))
 
 
 def _gmin(xs) -> list:
@@ -307,9 +330,14 @@ def _rounds_block(chunk_len: int, total_shards: int, idx, hs: tuple,
     for h in hs:
         if tied == 0:
             continue
-        rank, sa, rank_s, count = _doubling_step(chunk_len, total_shards,
-                                                 idx, h, rank, fan)
-        tied = int(coll.first_local(count))
+        fell = sum(distsort.fallbacks.values())
+        with span("global.round", n=chunk_len * total_shards,
+                  tied_in=tied) as sp:
+            rank, sa, rank_s, count = _doubling_step(
+                chunk_len, total_shards, idx, h, rank, fan)
+            tied = _read_tied(count)
+            sp.set(tied_out=tied,
+                   fell_back=sum(distsort.fallbacks.values()) > fell)
         ran += 1
     return rank, sa, rank_s, tied, ran
 
@@ -511,9 +539,14 @@ def _compact_block(chunk_len: int, total_shards: int, idx, fan: int,
     for h in hs:
         if tied == 0:
             continue
-        rank, sa, rank_s, count = _compact_round(
-            chunk_len, total_shards, idx, fan, m_cap, h, rank, sa, rank_s)
-        tied = int(coll.first_local(count))
+        fell = compact_fallbacks
+        with span("global.compact_round", m=2 * m_cap * total_shards,
+                  tied_in=tied) as sp:
+            rank, sa, rank_s, count = _compact_round(
+                chunk_len, total_shards, idx, fan, m_cap, h, rank, sa,
+                rank_s)
+            tied = _read_tied(count)
+            sp.set(tied_out=tied, fell_back=compact_fallbacks > fell)
         ran += 1
     return rank, sa, rank_s, tied, ran
 
@@ -664,6 +697,9 @@ class GlobalSuffixArray:
 
     idx: index dtype for global positions and ranks, torch.int32 (the
     default, n < 2^31) or torch.int64.
+
+    The build, placing the shards on their devices included, runs in the
+    span `global.build` (see the module's docstring).
     """
 
     def __init__(self, text: BytesLike, mesh, idx=_I32,
@@ -684,6 +720,21 @@ class GlobalSuffixArray:
         self.idx = idx
         self.fan = fan
         self.compaction = compaction
+        fell = dict(distsort.fallbacks)
+        compact_fell = compact_fallbacks
+        with span("global.build") as sp:
+            self._place(text, mesh, depth)
+            self._build()
+            if sp:
+                sp.set(fallbacks={k: v - fell.get(k, 0) for k, v in
+                                  distsort.fallbacks.items()
+                                  if v > fell.get(k, 0)},
+                       compact_fallbacks=compact_fallbacks - compact_fell)
+
+    def _place(self, text: BytesLike, mesh, depth: int) -> None:
+        """Pad the text to P equal chunks and put each local shard's chunk
+        on its device (the first local shard's device holds the text), in
+        the span `global.place`."""
         devices = mesh.part_devices
         arr = as_text_tensor(text, devices[mesh.local_parts[0]])
         self.n = int(arr.shape[0])
@@ -699,21 +750,24 @@ class GlobalSuffixArray:
         self.pad = pad
         if pad:
             arr = torch.cat([arr, arr.new_zeros((pad,))])
-        self.text_padded = [arr[s * chunk:(s + 1) * chunk].to(dev)
-                            if mesh.is_local(s) else None
-                            for s, dev in enumerate(devices)]
+        with span("global.place") as sp:
+            self.text_padded = [
+                coll.moved(arr[s * chunk:(s + 1) * chunk], dev, sp)
+                if mesh.is_local(s) else None
+                for s, dev in enumerate(devices)]
         del arr
         self._sa_host: Optional[np.ndarray] = None
-        self._build()
 
     def _build(self) -> None:
         chunk, p, idx = self.chunk_len, self.num_shards, self.idx
         n_pad = chunk * p
         m_cap = max(chunk // _COMPACT_DIV, 1)
 
-        rank, sa, rank_s, count = _initial_shard_ranks(
-            self.depth, idx, self.text_padded)
-        tied = int(coll.first_local(count))
+        with span("global.initial") as sp:
+            rank, sa, rank_s, count = _initial_shard_ranks(
+                self.depth, idx, self.text_padded)
+            tied = _read_tied(count)
+            sp.set(tied=tied)
         h = self.depth
         self.rounds_run = 0
         self.compact_rounds_run = 0
@@ -802,6 +856,17 @@ class GlobalSuffixArray:
             f"(position estimate assumes pad suffixes fill the first "
             f"{self.pad} slots; approximate if the text contains NULs)",
         )
+
+    @property
+    def sa_shards(self) -> tuple:
+        """The exact SA of the (unpadded) text as its shards' pieces, in
+        sorted order: piece s is this shard's slice of the global sorted
+        order, a tensor on its shard's device (shard 0's without the `pad`
+        slots of the pad suffixes, which sort first), None for another
+        process's shard. Their concatenation is `suffix_array()`. Views of
+        the index's own tensors: read them, do not write them."""
+        return tuple(None if x is None else x[self.pad:] if s == 0 else x
+                     for s, x in enumerate(self._sa_sharded))
 
     def comm_report(self):
         """Exact per-shard communication volume of THIS build
