@@ -2489,8 +2489,8 @@ def _route_edge_cases(gen) -> dict:
                         want = route.plain_route_partition(
                             src, length, p, planes, fills, cap, clamp,
                             windows)
-                        held("route_partition", [*got[0], got[1]],
-                             [*want[0], want[1]])
+                        held("route_partition", [*got[0], *got[1:]],
+                             [*want[0], *want[1:]])
     # 9 and 17 operands, mixed widths (two and three launches a call)
     for n in (tile + 1, (1 << 20) + 12345):
         for p, windows in ((4, 1), (4, 256), (512, 1)):
@@ -2507,8 +2507,8 @@ def _route_edge_cases(gen) -> dict:
                                                 fills, cap, clamp, windows)
                     want = route.plain_route_partition(
                         src, length, p, planes, fills, cap, clamp, windows)
-                    held("route_partition", [*got[0], got[1]],
-                         [*want[0], want[1]])
+                    held("route_partition", [*got[0], *got[1:]],
+                         [*want[0], *want[1:]])
     # the placement of what a permutation route by windows delivers
     for p in (2, 4, 8):
         for length in (1000, route.PLACE_TILE + 3, (1 << 20) + 7):
@@ -2670,7 +2670,7 @@ def phase17_route(text_np, card: str) -> dict:
     got, want = redistribute(1), redistribute(1, plain_sort)
     held("route_partition", f"the initial redistribute, shard 1 of 4, "
          f"L=2^{LOG2N - 2}, 2 int32 operands, cap {cap}, {windows} windows",
-         [*got[0], got[1]], [*want[0], want[1]], lambda: redistribute(1),
+         [*got[0], *got[1:]], [*want[0], *want[1:]], lambda: redistribute(1),
          lambda: redistribute(1, plain_sort), length * 8 + 2 * p * cap * 4,
          replaced=lambda: redistribute(1, device_sort, 2, 1))
     del got, want
@@ -2704,7 +2704,7 @@ def phase17_route(text_np, card: str) -> dict:
     for w in (64, 128, 256, 512):
         got, want = redistribute(1, windows=w), redistribute(
             1, plain_sort, windows=w)
-        err = _exact_err([*got[0], got[1]], [*want[0], want[1]])
+        err = _exact_err([*got[0], *got[1:]], [*want[0], *want[1:]])
         del got, want
         g1, v1 = received(w)
         err = max(err, _exact_err(
@@ -2772,7 +2772,7 @@ def phase17_route(text_np, card: str) -> dict:
         held("route_partition", f"the first round's rank_interval_sort, "
              f"shard 1 of 4, L=2^{LOG2N - 2}, {width} "
              f"{str(idx).split('.')[-1]} operands, cap {cap}",
-             [*got[0], got[1]], [*want[0], want[1]], interval,
+             [*got[0], *got[1:]], [*want[0], *want[1:]], interval,
              lambda: interval(plain_sort),
              length * width * size + p * cap * width * size,
              replaced=lambda: interval(device_sort))

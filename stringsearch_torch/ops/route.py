@@ -14,7 +14,8 @@ jitted programs. None of it replaces a Pallas kernel.
   * `route_partition`: the send buffers of one shard, by a stable
     counting partition by destination (and by window of the destination's
     slots, where the receiver places) in `csrc/route.cu`, with the
-    overflow flag and the fill of the empty slots;
+    overflow flag, each destination's row count (the counts the partition
+    keeps in its scratch) and the fill of the empty slots;
   * `place_received`: the receive side, one window of the receiver's
     slots a thread block cluster, assembled in shared memory and written
     once.
@@ -235,9 +236,9 @@ def plain_route_partition(src, length: int, p: int, planes, fills,
     by its first `num_keys` planes (`device_sort` by default), the rank
     inside each destination (`arange - searchsorted`), the overflow test
     and one scatter an operand into a buffer of fills, with a drop slot for
-    what cannot be placed. `num_keys` 2 with src as the first operand
-    orders each destination by src, as `redistribute_permutation` once
-    did."""
+    what cannot be placed; the row counts by `bincount`. `num_keys` 2 with
+    src as the first operand orders each destination by src, as
+    `redistribute_permutation` once did."""
     planes, fills = _check_route(src, length, p, planes, fills, cap,
                                  windows)
     if sort is None:
@@ -256,7 +257,10 @@ def plain_route_partition(src, length: int, p: int, planes, fills,
                          device=plane.device)
         buf[at] = plane
         sends.append(buf[:p * cap].view(p, cap))
-    return tuple(sends), over
+    counts = torch.bincount(torch.div(key[key >= 0], windows,
+                                      rounding_mode="floor"),
+                            minlength=p).to(_I32)
+    return tuple(sends), over, counts
 
 
 def _route_attrs(out, src, length, p, planes, *args, **kwargs) -> dict:
@@ -282,29 +286,34 @@ def route_partition(src, length: int, p: int, planes, fills, cap: int,
     `planes` are [n] int32 or int64 tensors on src's device (src itself
     may be one), any number of them, `fills` one value each; p and windows
     are any positive counts (the card takes them in the calls and
-    launches of `launch_plan`). Returns (buffers, over): the buffers, each
-    [p, cap] of its operand's dtype, and over, a 0-d int32 tensor on src's
-    device, 1 where a row holds more than cap (what lies past cap is
-    dropped) or, without `clamp`, an element's destination lies outside
-    [0, p), else 0. Reading it is the caller's only host sync.
+    launches of `launch_plan`). Returns (buffers, over, counts): the
+    buffers, each [p, cap] of its operand's dtype; over, a 0-d int32
+    tensor on src's device, 1 where a row holds more than cap (what lies
+    past cap is dropped) or, without `clamp`, an element's destination
+    lies outside [0, p), else 0; counts, a [p] int32 tensor on src's
+    device, the elements bound for each destination, cap or not (row d
+    holds min(counts[d], cap) of them). Reading them is the caller's only
+    host sync.
     """
     planes, fills = _check_route(src, length, p, planes, fills, cap,
                                  windows)
     if not _on_cuda(src, "src"):
         return plain_route_partition(src, length, p, planes, fills, cap,
                                      clamp, windows)
-    sends, over, calls = launch_route(load_library(), src, length, p,
-                                      planes, fills, cap, clamp, windows)
+    sends, over, counts, calls = launch_route(
+        load_library(), src, length, p, planes, fills, cap, clamp, windows)
     launches["route_partition"] += calls
-    return sends, over
+    return sends, over, counts
 
 
 def launch_route(lib, src, length: int, p: int, planes, fills, cap: int,
                  clamp: bool, windows: int) -> tuple:
     """`route_partition` on the card through `lib` (this module's library
     or another build of `csrc/route.cu`'s interface): the library calls of
-    `launch_plan`, on one scratch. Returns (buffers, over, library
-    calls)."""
+    `launch_plan`, on one scratch. Returns (buffers, over, counts,
+    library calls): the counts are copied from the head of the scratch,
+    where the calls keep the row counts, so that the scratch goes with the
+    call."""
     n = src.shape[0]
     if n >= 1 << 31 or p * windows >= 1 << 31:
         raise ValueError("route_partition takes n < 2^31 and fewer than "
@@ -333,7 +342,7 @@ def launch_route(lib, src, length: int, p: int, planes, fills, cap: int,
                   outs, widths, values, count, cap, over.data_ptr(),
                   scratch.data_ptr())
             calls += 1
-    return tuple(sends), over, calls
+    return tuple(sends), over, scratch[:p].clone(), calls
 
 
 # ---------------------------------------------------------------------------

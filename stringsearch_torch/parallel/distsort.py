@@ -27,9 +27,18 @@ What differs from the JAX package, and why:
   * `jax.axis_index` is the shard's Python index, and a branch on it is a
     host branch per shard.
   * `lax.cond` on a replicated flag is a host branch: one sync for the
-    overflow flag of each fast path, and one for the boundary check of
-    `rank_interval_sort`, which reads every shard's valid count to slice
-    the boundary repair on the host.
+    overflow flag of each fast path. `rank_interval_sort` reads, in that
+    same sync, every shard's row count for each receiver (`route_partition`
+    returns them with the flag), so it decides the boundary check on the
+    host before the exchange, where the JAX package sorts first and counts
+    the valid rows after: one host read a call, not two.
+  * `rank_interval_sort`'s receivers sort only the rows that hold an
+    element: each packs the valid prefix of every sender's block, by the
+    counts read with the flag, where the JAX package sorts the whole
+    p * cap receive buffer with its pads (rank the dtype's maximum, sorted
+    last). The packed rows keep the valid rows' order and the sort is
+    stable, so the sorted rows, the boundary repair and the output are
+    those of the padded sort, ties included.
   * Every local sort is `ops.bitonic.device_sort`, which is stable (on
     CUDA the hand-written radix sort). `lax.sort` is not, so where the keys
     tie the buffers may be laid out differently from JAX's; what the keys
@@ -56,8 +65,11 @@ Spans (`harness/tracing.py`, recorded only under a profiler):
 and `distsort.rank_interval_sort` hold a call each, with the attribute
 `fell_back` where a route fell back to the merge-split sort;
 `distsort.recv_sort` holds `rank_interval_sort`'s local sorts of the
-receive buffers (p * cap rows a shard); `global.wait` holds each host read
-of a replicated flag or count (`host_flag`, the boundary counts).
+packed receive buffers, with the attributes `rows` (the valid rows sorted,
+summed over the local shards) and `capacity` (p * cap a local shard, summed:
+1 - rows / capacity is the share of pad rows left unsorted); `global.wait`
+holds each host read of a replicated flag or count (`host_flag`, the
+interval sort's table of counts and flags).
 """
 
 from __future__ import annotations
@@ -177,14 +189,15 @@ def redistribute_cap(p: int, chunk_elems: int, cap_factor: int = 2) -> int:
 def _route(src, operands, fills, length: int, p: int, cap: int,
            clamp: bool, windows: int = 1) -> tuple:
     """Every local shard's [P, cap] send buffers of `operands` routed by
-    `src` (`route_partition`), and the replicated overflow flag. Returns
-    (buffers: a tuple of per-shard lists, one an operand; flags)."""
-    sends, over = [None] * p, [None] * p
+    `src` (`route_partition`), its overflow flag and its [P] row counts.
+    Returns (buffers: a tuple of per-shard lists, one an operand; flags;
+    counts), the last two per-shard lists."""
+    sends, over, counts = [None] * p, [None] * p, [None] * p
     for me in coll.local_parts(src):
-        sends[me], over[me] = route_partition(
+        sends[me], over[me], counts[me] = route_partition(
             src[me], length, p, _local(operands, me), fills, cap, clamp,
             windows)
-    return _by_operand(sends), coll.psum(over)
+    return _by_operand(sends), over, counts
 
 
 def redistribute_permutation(gidx, operands, cap_factor: int = 2) -> tuple:
@@ -228,10 +241,10 @@ def _redistribute(gidx, operands, cap_factor: int, sp) -> tuple:
     # places a window at a time
     windows = receiver_windows(p, length, max(
         coll.first_local(op).element_size() for op in operands))
-    sends, over = _route(gidx, (gidx,) + operands,
-                         (-1,) + (0,) * len(operands), length, p, cap, False,
-                         windows)
-    if host_flag(over):
+    sends, over, _ = _route(gidx, (gidx,) + operands,
+                            (-1,) + (0,) * len(operands), length, p, cap,
+                            False, windows)
+    if host_flag(coll.psum(over)):
         del sends
         fallbacks["redistribute"] += 1
         sp.set(fell_back=True)
@@ -262,15 +275,23 @@ def rank_interval_sort(operands, num_keys: int, cap_factor: int = 2
     the global slots [s*L + overhang_s, (s+1)*L + overhang_{s+1}), and ONE
     neighbour ppermute of the right-aligned tail repairs the boundaries.
 
-    Fast-path capacities (static; the replicated overflow flags fall back
-    to `sharded_sort`): the per-pair all_to_all capacity
-    `redistribute_cap`, and the same cap for the boundary shift (a tie
-    group larger than cap straddling a shard boundary overflows it).
+    Fast-path capacities (static; either overflow falls back to
+    `sharded_sort`): the per-pair all_to_all capacity `redistribute_cap`,
+    and the same cap for the boundary shift (a tie group larger than cap
+    straddling a shard boundary overflows it). Both are decided before the
+    exchange, from one host read: every shard's overflow flag and its row
+    count for each receiver (`route_partition`), all-gathered into one
+    [P, P + 1] table. The counts give each receiver's valid rows, and so
+    the head deficits and tail spills of the boundary repair.
+
+    Each receiver keeps the valid prefix of every sender's block, in
+    sender order, and sorts only those rows: about L of the p * cap it
+    receives. The send buffers and the bytes sent are the JAX package's.
 
     Returns the operands globally sorted by the first `num_keys` (ties in
     any order unless the key tuple is unique). In the span
     `distsort.rank_interval_sort` (`fell_back` on a fallback), its local
-    sorts in `distsort.recv_sort`.
+    sorts in `distsort.recv_sort` (`rows`, `capacity`).
     """
     with span("distsort.rank_interval_sort") as sp:
         return _rank_interval_sort(operands, num_keys, cap_factor, sp)
@@ -293,51 +314,56 @@ def _rank_interval_sort(operands, num_keys: int, cap_factor: int, sp
     sent = torch.iinfo(coll.first_local(operands[0]).dtype).max
     cap = redistribute_cap(p, length, cap_factor)
     # routed by the head-slot rank's shard, clamped into [0, P)
-    sends, over = _route(operands[0], operands,
-                         (sent,) + (0,) * (len(operands) - 1), length, p, cap,
-                         True)
-    if host_flag(over):
+    sends, over, counts = _route(operands[0], operands,
+                                 (sent,) + (0,) * (len(operands) - 1), length,
+                                 p, cap, True)
+    # row s: shard s's count for each receiver, then its overflow flag
+    table = coll.first_local(coll.all_gather(coll.each(
+        counts, lambda me: torch.cat([counts[me], over[me].view(1)]))))
+    with wait_span("global.wait"):
+        table = table.tolist()
+    if any(row[p] for row in table):
         del sends
         fallbacks["rank_interval"] += 1
         sp.set(fell_back=True)
         return sharded_sort(operands, num_keys=num_keys)
-
-    # receive buffer = p * cap rows (every pair at full capacity); pads
-    # carry rank `sent` and sort last
-    sends = list(sends)
-    recvs = []
-    for _ in operands:
-        recv = coll.all_to_all(sends.pop(0))
-        recvs.append(coll.each(recv, lambda me: recv[me].reshape(-1)))
-    srt2 = [None] * p
-    with span("distsort.recv_sort"):
-        for me in coll.local_parts(recvs[0]):
-            srt2[me] = device_sort(_local(recvs, me), max(num_keys, 1))
-            for col in recvs:
-                col[me] = None
-    del recvs
-    n_valid = coll.each(srt2, lambda me: (srt2[me][0] != sent).sum())
-    prefix = exclusive_shard_offset(n_valid)
-    # every shard's valid count and head deficit, read at once
-    counts = coll.first_local(coll.all_gather(coll.each(
-        n_valid, lambda me: torch.stack([n_valid[me], prefix[me]]))))
-    with wait_span("global.wait"):
-        nv, pre = zip(*counts.tolist())
+    nv = [sum(row[d] for row in table) for d in range(p)]  # valid rows
+    pre = [sum(nv[:d]) for d in range(p)]
     oh = [pre[me] - me * length for me in range(p)]  # my head deficit
     spill = [pre[me] + nv[me] - (me + 1) * length  # my tail spill
              for me in range(p)]
     # shard p-1 has spill 0 by construction (prefix + valid == n)
     if any(not (0 <= x <= cap) for x in oh + spill):
-        del srt2
+        del sends
         fallbacks["rank_interval_boundary"] += 1
         sp.set(fell_back=True)
         return sharded_sort(operands, num_keys=num_keys)
 
+    # each receiver keeps the valid prefix of every sender's block, in
+    # sender order; the padded buffer goes before the next exchange
+    sends = list(sends)
+    packed = []
+    for _ in operands:
+        recv = coll.all_to_all(sends.pop(0))
+        packed.append(coll.each(recv, lambda me: torch.cat(
+            [recv[me][s, :table[s][me]] for s in range(p)])))
+        del recv
+    srt2 = [None] * p
+    with span("distsort.recv_sort") as sort_sp:
+        mine = coll.local_parts(packed[0])
+        sort_sp.set(rows=sum(nv[me] for me in mine),
+                    capacity=len(mine) * p * cap)
+        for me in mine:
+            srt2[me] = device_sort(_local(packed, me), max(num_keys, 1))
+            for col in packed:
+                col[me] = None
+    del packed
+
     perm = [(t, (t + 1) % p) for t in range(p)]
     outs = []
     for k in range(len(operands)):
-        # the right-aligned tail [n_valid - cap, n_valid) of the valid
-        # region, zero-filled in front; receivers read its last oh slots
+        # the right-aligned tail [nv - cap, nv) of the sorted rows,
+        # zero-filled in front; receivers read its last oh slots
         tails = [None] * p
         for me in coll.local_parts(srt2):
             op2 = srt2[me][k]

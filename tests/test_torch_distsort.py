@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
+from torch.profiler import ProfilerActivity, profile
 
+from stringsearch_torch.harness import tracing
 from stringsearch_torch.harness.corpus import enwik_like
 from stringsearch_torch.parallel import collectives as coll
 from stringsearch_torch.parallel import comm_model, distsort
@@ -209,6 +211,115 @@ def test_rank_interval_sort(p, case):
             "straddle": {"rank_interval_boundary": 1}}[case]
     # merge-split is the route at P = 2
     assert dict(distsort.fallbacks) == ({} if p == 2 else want)
+
+
+def _interval_inputs(p: int, case: str, length: int = 256) -> tuple:
+    """(rank, second, gidx) of an interval sort over p shards of `length`:
+    "spread" (distinct ranks), "skewed" (a tie group of 1.5 cap starting
+    half a cap before the boundary of shards 1 and 2: receiver 1 gets L +
+    cap rows and spills exactly cap, every pair within cap), "giant-group"
+    (one tie group: a pair overflows) and "straddle" (a group of 2 cap
+    across the boundary of shards 0 and 1: shard 0's spill overflows)."""
+    n = p * length
+    cap = redistribute_cap(p, length)
+    rng = np.random.default_rng([p, len(case)])
+    key = np.arange(n)
+    if case == "skewed":
+        h = 2 * length - cap // 2
+        key[h:h + 3 * cap // 2] = h
+    elif case == "giant-group":
+        key[:] = 0
+    elif case == "straddle":
+        h = length - cap // 2
+        key[h:h + 2 * cap] = h
+    rank = _head_slot_ranks(rng.permutation(key))
+    second = rng.integers(0, 5, n).astype(np.int32)
+    gidx = rng.permutation(n).astype(np.int32)
+    return rank, second, gidx
+
+
+def _interval_sort(p: int, arrays) -> list:
+    out = rank_interval_sort(tuple(_shards(a, p) for a in arrays), 3)
+    order = np.lexsort(arrays[::-1])
+    for o, a in zip(out, arrays):
+        np.testing.assert_array_equal(_cat(o), a[order])
+    return out
+
+
+@pytest.mark.parametrize("p", [4, 8])
+@pytest.mark.parametrize("case", ["spread", "skewed"])
+def test_recv_sort_takes_the_valid_rows_only(p, case, monkeypatch):
+    """Each receiver sorts exactly the rows bound for it, nv[d] of them,
+    not its p * cap buffer; the span `distsort.recv_sort` says so. The
+    skewed receiver's nv exceeds L and the output still equals a
+    lexsort."""
+    arrays = _interval_inputs(p, case)
+    length = arrays[0].size // p
+    cap = redistribute_cap(p, length)
+    rows = []
+    device_sort = distsort.device_sort
+
+    def spy(ops, num_keys):
+        rows.append(ops[0].shape[0])
+        return device_sort(ops, num_keys)
+
+    monkeypatch.setattr(distsort, "device_sort", spy)
+    distsort.fallbacks.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _interval_sort(p, arrays)
+    assert not distsort.fallbacks
+    nv = np.bincount(np.clip(arrays[0] // length, 0, p - 1), minlength=p)
+    assert rows == nv.tolist()
+    assert (nv.max() > length) == (case == "skewed")
+    host = [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()]
+    recv = [s for s in tracing.records(host, [])
+            if s.name == "distsort.recv_sort"]
+    assert [s.attrs for s in recv] == [{"rows": p * length,
+                                        "capacity": p * p * cap}]
+
+
+@pytest.mark.parametrize("p", [4, 8])
+@pytest.mark.parametrize("case", ["spread", "skewed", "giant-group",
+                                  "straddle"])
+def test_interval_sort_reads_the_host_once(p, case, monkeypatch):
+    """One host read a call, the fast path's and each fallback's: the
+    table of counts and flags decides them all."""
+    waits = []
+    wait_span = distsort.wait_span
+
+    def counted(name, **attrs):
+        waits.append(name)
+        return wait_span(name, **attrs)
+
+    monkeypatch.setattr(distsort, "wait_span", counted)
+    distsort.fallbacks.clear()
+    _interval_sort(p, _interval_inputs(p, case))
+    assert waits == ["global.wait"]
+    assert dict(distsort.fallbacks) == {
+        "spread": {}, "skewed": {}, "giant-group": {"rank_interval": 1},
+        "straddle": {"rank_interval_boundary": 1}}[case]
+
+
+@pytest.mark.parametrize("p", [4, 8])
+@pytest.mark.parametrize("case", ["giant-group", "straddle"])
+def test_interval_fallbacks_come_before_the_exchange(p, case, monkeypatch):
+    """A pair over cap and a spill over cap both fall back to the
+    merge-split sort before any all_to_all has sent a byte."""
+    at_fallback = []
+    fallback = distsort.sharded_sort
+
+    def recorded(operands, num_keys=1):
+        at_fallback.append(sum(coll.sent["all_to_all"].values()))
+        return fallback(operands, num_keys)
+
+    monkeypatch.setattr(distsort, "sharded_sort", recorded)
+    coll.reset_traffic()
+    distsort.fallbacks.clear()
+    _interval_sort(p, _interval_inputs(p, case))
+    assert at_fallback == [0]
+    assert sum(coll.sent["all_to_all"].values()) == 0
+    assert sum(distsort.fallbacks.values()) == 1
 
 
 def test_comm_model_functions_equal_jax():

@@ -144,12 +144,27 @@ def np_route(src, length, p, planes, fills, cap, clamp, windows=1):
     return sends, int(not ok.all())
 
 
+def np_route_counts(src, length, p, clamp):
+    """Each destination's elements, cap or not, as the routing arithmetic
+    assigns them (what lies outside [0, p) without `clamp` counts
+    nowhere)."""
+    dest = np.floor_divide(src.astype(np.int64), length)
+    if clamp:
+        dest = np.clip(dest, 0, p - 1)
+    return np.bincount(dest[(dest >= 0) & (dest < p)], minlength=p)
+
+
 def _route_torch(fn, src, length, p, planes, fills, cap, clamp, device=CPU,
                  windows=1):
-    sends, over = fn(torch.from_numpy(src).to(device), length, p,
-                     [torch.from_numpy(x).to(device) for x in planes],
-                     fills, cap, clamp, windows)
+    """The buffers and flag of `fn`, its row counts held to the model."""
+    sends, over, counts = fn(torch.from_numpy(src).to(device), length, p,
+                             [torch.from_numpy(x).to(device) for x in planes],
+                             fills, cap, clamp, windows)
     assert over.dim() == 0 and over.dtype == torch.int32
+    assert counts.shape == (p,) and counts.dtype == torch.int32
+    assert counts.device == over.device
+    np.testing.assert_array_equal(counts.cpu().numpy(),
+                                  np_route_counts(src, length, p, clamp))
     return [s.cpu().numpy() for s in sends], int(over)
 
 
@@ -185,6 +200,36 @@ def test_plain_route_partition_small(n):
     assert over == want_over
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("windows", [1, 4])
+@pytest.mark.parametrize("case,p", [
+    (case, p) for case in CASES for p in SHARDS
+    if _route_case(case, p, I32) is not None])
+def test_route_counts_equal_the_plain_counts(case, p, windows):
+    """The row counts `route_partition` returns beside its buffers equal
+    `plain_route_partition`'s and the model's, cap or not; the buffers and
+    the flag are what they were without counts (the model's); and row d
+    holds min(counts[d], cap) elements."""
+    src, length, cap, clamp = _route_case(case, p, I64)
+    ids = np.arange(src.size, dtype=I32)
+    args = (torch.from_numpy(src), length, p,
+            (torch.from_numpy(src), torch.from_numpy(ids)), (-1, -1), cap,
+            clamp, windows)
+    sends, over, counts = route.route_partition(*args)
+    plain = route.plain_route_partition(*args)
+    np.testing.assert_array_equal(counts.numpy(), plain[2].numpy())
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np_route_counts(src, length, p, clamp))
+    want, want_over = np_route(src, length, p, (src, ids), (-1, -1), cap,
+                               clamp, windows)
+    assert int(over) == int(plain[1]) == want_over
+    for got, other, w in zip(sends, plain[0], want):
+        np.testing.assert_array_equal(got.numpy(), w)
+        np.testing.assert_array_equal(other.numpy(), w)
+    held = (sends[1].numpy() >= 0).sum(axis=1)
+    np.testing.assert_array_equal(held, np.minimum(counts.numpy(), cap))
+    assert (counts.numpy() > cap).any() == (case == "past cap")
 
 
 def test_the_model_is_the_jax_arithmetic():
@@ -544,13 +589,15 @@ def test_rank_interval_sort_sends_and_output(p, case, monkeypatch):
                               else {"rank_interval": 1})
     # every shard's buffers against the JAX arithmetic
     assert len(sent) == p
-    for src, planes, fills, clamp, windows, (sends, over) in sent:
+    for src, planes, fills, clamp, windows, (sends, over, counts) in sent:
         want, want_over = np_route(src.numpy(), length, p,
                                    [x.numpy() for x in planes], fills, cap,
                                    clamp)
         assert clamp and windows == 1
         assert fills == (np.iinfo(I32).max, 0, 0)
         assert int(over) == want_over
+        np.testing.assert_array_equal(
+            counts.numpy(), np_route_counts(src.numpy(), length, p, clamp))
         for g, w in zip(sends, want):
             np.testing.assert_array_equal(g.numpy(), w)
     f = _shard_map(p, lambda *ops: jris(ops, "parts", num_keys=3), 3,

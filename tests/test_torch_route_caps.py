@@ -187,7 +187,7 @@ class Recorded:
               windows=1):
         self.calls.append(("route_partition", p, windows, len(planes)))
         lib = StandInLibrary()
-        _sends, _over, calls = route.launch_route(
+        _sends, _over, _counts, calls = route.launch_route(
             lib, src, length, p, planes, fills, cap, clamp, windows)
         assert calls == len(lib.calls)
         # consecutive bucket ranges from 0 to p * windows; in each, every
