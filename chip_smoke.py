@@ -213,10 +213,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 INT32_MAX = 2**31 - 1
 INT32_MIN = -2**31
 LOG2N = 28  # the benchmark's text size, bench.py:55
-# Published peaks of one H100 SXM: device memory, and 32-bit operations
-# outside the tensor cores (67 TFLOP/s of float32 counts a multiply-add as
-# two; an integer operation is one).
-BYTES_PER_S = 3.35e12
+# Published peak of one H100 SXM in 32-bit operations outside the tensor
+# cores (67 TFLOP/s of float32 counts a multiply-add as two; an integer
+# operation is one); its memory rate is `harness.BYTES_PER_S`.
 OPS_PER_S = 33.5e12
 # the main path's sorts: (name, planes, keys), doubling.py
 SORT_SHAPES = (("invert", 2, 1), ("initial", 4, 3), ("round", 5, 4))
@@ -278,6 +277,8 @@ def cuda_ms(fn, reps: int) -> float:
 def bound(nbytes: float, ops: float) -> dict:
     """`bound_ms` and `bound_by` of a function that must move `nbytes` and
     do `ops` 32-bit operations."""
+    from stringsearch_torch.harness import BYTES_PER_S
+
     by_bytes = nbytes / BYTES_PER_S * 1e3
     by_ops = ops / OPS_PER_S * 1e3
     return {"bound_ms": round(max(by_bytes, by_ops), 4),
@@ -296,6 +297,7 @@ def radix_design_ms(n: int, c: int, nk: int, live) -> float:
     histogram, then all c planes read and written by each live pass, and
     the look-back words). More bytes than the function needs, so not a
     bound of the function: printed beside `bound_ms`, reported nowhere."""
+    from stringsearch_torch.harness import BYTES_PER_S
     from stringsearch_torch.ops import radix_sort
 
     return round(radix_sort.design_bytes(n, c, nk, live) / BYTES_PER_S * 1e3,

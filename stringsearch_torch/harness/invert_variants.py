@@ -5,13 +5,15 @@
 SIZE is log2 of the text's bytes, or `e9` for 10^9 (default: 28 e9).
 For each size, two texts (`harness/corpus.py:enwik_like` and the
 Fibonacci word) are built as `sort()` builds them, with every invert
-(`engines/doubling.py:_scatter_to_text_order`) intercepted: on that
-invert's own (sa_s, rank_s), each copy of `ops/csrc/steps.cu` in VARIANTS
+(`engines/doubling.py:_scatter_to_text_order`) observed at its entry
+(`sys.setprofile`; the engine is left as it is): on that invert's own
+(sa_s, rank_s), each copy of `ops/csrc/steps.cu` in VARIANTS
 (a text replacement that must match its source exactly once) is held
 against the as-built kernel (tolerance 0) and timed, beside the C=2 radix
 sort of (sa_s, rank_s) that the invert was before (`device_sort`), and
 then the same on a random permutation of the size. The copies are
-written to and built in `stringsearch_torch/_build/variants/`.
+written to and built in `stringsearch_torch/_build/variants/`
+(`Library.variant`).
 
 Each time is the mean of CUDA events over five calls after a warm one,
 beside the bytes bound at 3.35 TB/s: sa_s and rank_s read once, the ranks
@@ -22,18 +24,18 @@ CUDA device.
 from __future__ import annotations
 
 import json
-import os
 import sys
 
 import numpy as np
 import torch
 
+from stringsearch_torch import harness
 from stringsearch_torch.engines import doubling
+from stringsearch_torch.harness import BYTES_PER_S
 from stringsearch_torch.harness.corpus import enwik_like
-from stringsearch_torch.ops import _build, steps
+from stringsearch_torch.ops import steps
 from stringsearch_torch.ops.bitonic import device_sort
 
-BYTES_PER_S = 3.35e12
 _DIRECT = "constexpr int64_t kDirectBytes = int64_t(32) << 20;"
 _WINDOW = "constexpr int64_t kWindowBytes = int64_t(8) << 20;"
 _PLACE = "constexpr int kPlaceBytes = 64 * 1024;"
@@ -49,42 +51,13 @@ VARIANTS = {
 
 def variant_source(name: str) -> str:
     """Write the copy of the source with VARIANTS[name]; returns its path."""
-    with open(steps._SOURCE) as f:
-        src = f.read()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: {old!r} does not occur "
-                               f"exactly once in {steps._SOURCE}")
-        src = src.replace(old, new)
-    path = os.path.join(_build.BUILD_DIR, "variants",
-                        "steps_" + name.replace(" ", "_") + ".cu")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(src)
-    return path
+    return harness.variant_source("steps " + name, steps._SOURCE,
+                                  VARIANTS[name])
 
 
-def variant_library(name: str):
-    """The steps library built from variant `name`'s source."""
-    return steps._load(_build.build_library(
-        "steps_variant", [variant_source(name)],
-        [_build.nvcc(), *_build.NVCC_FLAGS]))
-
-
-def invert_with(lib, sa_s, rank_s):
-    """`steps.invert_ranks` on the library `lib`."""
-    n = sa_s.shape[0]
-    width = rank_s.element_size()
+def _inverted(lib, sa_s, rank_s):
     rank = torch.empty_like(rank_s)
-    nbytes = lib.ss_invert_ranks_scratch_bytes(n, width)
-    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=sa_s.device)
-               if nbytes else None)
-    rc = lib.ss_invert_ranks(sa_s.data_ptr(), rank_s.data_ptr(), n, width,
-                             rank.data_ptr(),
-                             None if scratch is None else scratch.data_ptr(),
-                             torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"ss_invert_ranks failed (code {rc})")
+    steps.launch_invert(lib, sa_s, rank_s, rank)
     return rank
 
 
@@ -105,11 +78,11 @@ def measure(libs, sa_s, rank_s) -> dict:
     want = steps.invert_ranks(sa_s, rank_s)
     out = {}
     for name, lib in libs.items():
-        got = invert_with(lib, sa_s, rank_s)
+        got = _inverted(lib, sa_s, rank_s)
         if not torch.equal(got, want):
             raise RuntimeError(f"variant {name!r} disagrees with the kernel")
         del got
-        out[name] = _ms(lambda lib=lib: invert_with(lib, sa_s, rank_s))
+        out[name] = _ms(lambda lib=lib: _inverted(lib, sa_s, rank_s))
     out["C=2 radix sort"] = _ms(
         lambda: device_sort((sa_s, rank_s), num_keys=1))
     if not torch.equal(device_sort((sa_s, rank_s), num_keys=1)[1], want):
@@ -135,17 +108,18 @@ def run(size: str, libs, card: str) -> None:
     for name, n, make in texts(size):
         text = torch.from_numpy(make().copy()).to("cuda")
         inverts = []
-        plain = doubling._scatter_to_text_order
+        invert = doubling._scatter_to_text_order.__code__
 
-        def hooked(sa_s, rank_s, out=None):
-            inverts.append(measure(libs, sa_s, rank_s))
-            return plain(sa_s, rank_s, out)
+        def entered(frame, event, _arg):
+            if event == "call" and frame.f_code is invert:
+                inverts.append(measure(libs, frame.f_locals["sa"],
+                                       frame.f_locals["rank_s"]))
 
-        doubling._scatter_to_text_order = hooked
+        sys.setprofile(entered)
         try:
             doubling.sort(text)
         finally:
-            doubling._scatter_to_text_order = plain
+            sys.setprofile(None)
         del text
         torch.cuda.empty_cache()
         lines.append({"text": name, "n": n, "inverts": len(inverts),
@@ -173,7 +147,8 @@ def main(argv=None) -> None:
         sys.exit("invert_variants needs a CUDA device")
     sizes = (argv if argv is not None else sys.argv[1:]) or ["28", "e9"]
     card = torch.cuda.get_device_name(0)
-    libs = {name: variant_library(name) for name in VARIANTS}
+    libs = {name: steps.LIBRARY.variant(variant_source(name))
+            for name in VARIANTS}
     for size in sizes:
         run(size, libs, card)
 

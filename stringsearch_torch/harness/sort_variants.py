@@ -3,8 +3,8 @@ destination kernel buys, on one GPU.
 
     python -m stringsearch_torch.harness.sort_variants [FAMILY ...]
 
-The families are `sort`, `bitonic`, `dest`, `earlier`, `bitonic_earlier`
-and `bitonic_passes`; with no argument the first three run. `sort` builds
+The families are `sort`, `bitonic`, `dest` and `bitonic_passes`; with no
+argument the first three run. `sort` builds
 copies of `ops/csrc/radix_sort.cu` (the sort behind `device_sort`) with
 one choice changed (the text replacements of RADIX_VARIANTS, each of
 which must match its source exactly once: digit width, tile and block, how
@@ -32,19 +32,17 @@ build (registers, stack, machine operations a segment), holds it against
 `plain_dest`, then times it at n = 2^28, shift 24, on random, two-bin and
 one-bin keys at tiles 1024, 2048 and 8192, two readings as above.
 
-`earlier` times the radix sort against an earlier design of it, whose
-source the caller puts at EARLIER_SOURCE (`earlier_main`);
-`bitonic_earlier` the bitonic sort against its earlier design at
-EARLIER_BITONIC (`bitonic_earlier_main`); `bitonic_passes` the device time
-of each kind of pass of one bitonic sort (`bitonic_passes_main`).
+`bitonic_passes` gives the device time of each kind of pass of one
+bitonic sort (`bitonic_passes_main`).
 
-The copies are written to and built in `stringsearch_torch/_build/variants/`.
+The copies are written to and built in `stringsearch_torch/_build/variants/`
+(`Library.variant`). To time a kernel against an earlier design of it, run
+the benchmark on a `git archive` of the earlier commit beside this one.
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 import re
 import subprocess
@@ -53,6 +51,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from stringsearch_torch import harness
+from stringsearch_torch.harness import BYTES_PER_S
 from stringsearch_torch.ops import _build, bitonic, radix, radix_sort
 
 # bitonic.cu
@@ -139,7 +139,6 @@ RADIX_VARIANTS = {
                                                     digits=11),
 }
 SHAPES = ((2, 1), (4, 3), (5, 4))  # (planes, keys): invert, initial, round
-BYTES_PER_S = 3.35e12  # one H100's device memory
 SIZES = (24, 28)
 
 
@@ -219,24 +218,13 @@ DEST_VARIANTS = {
 def variant_source(name: str) -> str:
     """Write the patched copy of variant `name`'s source; returns its path."""
     if name in RADIX_VARIANTS:
-        source, edits = radix_sort._SOURCE, RADIX_VARIANTS[name]
-    elif name in DEST_VARIANTS:
-        source, edits = radix._SOURCE, DEST_VARIANTS[name][0]
-    else:
-        source, edits = bitonic._SOURCE, VARIANTS[name]
-    with open(source) as f:
-        src = f.read()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: {old!r} does not occur "
-                               f"exactly once in {source}")
-        src = src.replace(old, new)
-    path = os.path.join(_build.BUILD_DIR, "variants",
-                        name.replace(" ", "_") + ".cu")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(src)
-    return path
+        return harness.variant_source(name, radix_sort._SOURCE,
+                                      RADIX_VARIANTS[name])
+    if name in DEST_VARIANTS:
+        return harness.variant_source(name, radix._SOURCE,
+                                      DEST_VARIANTS[name][0])
+    return harness.variant_source("bitonic " + name, bitonic._SOURCE,
+                                  VARIANTS[name])
 
 
 def _bitonic_sorted(lib, planes, nk):
@@ -263,8 +251,8 @@ def _launch_dest(lib, keys, tile: int, warps: int) -> tuple:
     dest = torch.empty_like(keys)
     local_base = torch.empty((n // tile, 256), dtype=torch.int32,
                              device=keys.device)
-    radix.launch(lib, "ss_radix_dest", keys.device, keys.data_ptr(), n, tile,
-                 24, warps, dest.data_ptr(), local_base.data_ptr())
+    lib.call("ss_radix_dest", keys.device, keys.data_ptr(), n, tile, 24,
+             warps, dest.data_ptr(), local_base.data_ptr())
     return dest, local_base
 
 
@@ -276,8 +264,8 @@ def _dest_code(lib) -> str:
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
 
     def dump(flag):
-        return subprocess.run([tool, flag, lib._name], capture_output=True,
-                              text=True).stdout
+        return subprocess.run([tool, flag, lib.load()._name],
+                              capture_output=True, text=True).stdout
 
     usage = dict(re.findall(
         r"Function \S*dest_kernelILi(\d+)E\S*:\s*\n\s*(REG:\d+ STACK:\d+)",
@@ -304,8 +292,8 @@ def dest_main() -> None:
     # name -> (library, warps per tile by tile); one nvcc each, side by side
     with ThreadPoolExecutor(len(DEST_VARIANTS)) as pool:
         libs = list(pool.map(
-            lambda name: radix.build(name.replace(" ", "_"),
-                                     variant_source(name)), DEST_VARIANTS))
+            lambda name: radix.LIBRARY.variant(variant_source(name)),
+            DEST_VARIANTS))
     built = {}
     for (name, (_, warps)), lib in zip(DEST_VARIANTS.items(), libs):
         built[name] = (lib, {t: warps.get(t, radix.dest_warps_per_tile(t))
@@ -397,7 +385,7 @@ def sort_main() -> None:
     """Check and time every copy of the radix sort."""
     sorts = {}
     for name in RADIX_VARIANTS:
-        lib = radix_sort.build(name.replace(" ", "_"), variant_source(name))
+        lib = radix_sort.LIBRARY.variant(variant_source(name))
         sorts[name] = (lambda planes, nk, lib=lib:
                        radix_sort.launch_sort(lib, planes, nk))
     _sweep(sorts, SIZES, ("random", "ranks"))
@@ -411,8 +399,8 @@ def bitonic_main() -> None:
     names = list(VARIANTS)
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(
-            lambda name: bitonic.build("bitonic_" + name.replace(" ", "_"),
-                                       variant_source(name)), names))
+            lambda name: bitonic.LIBRARY.variant(variant_source(name)),
+            names))
     sorts = {"bitonic " + name: (lambda planes, nk, lib=lib:
                                  _bitonic_sorted(lib, planes, nk))
              for name, lib in zip(names, libs)}
@@ -500,134 +488,9 @@ def bitonic_passes_main() -> None:
             torch.cuda.empty_cache()
 
 
-# where `bitonic_earlier` finds the earlier design's source: the in-place
-# interface `ss_bitonic_sort_i32(planes, c, n, num_keys, stream)`
-EARLIER_BITONIC = os.path.join(_build.BUILD_DIR, "earlier", "bitonic.cu")
-
-
-def _earlier_bitonic():
-    """The sort of EARLIER_BITONIC as `bitonic_sort` called it then: a
-    copy of every plane, sorted in place."""
-    path = _build.build_library("earlier_bitonic", [EARLIER_BITONIC],
-                                [_build.nvcc(), *_build.NVCC_FLAGS])
-    lib = ctypes.CDLL(path)
-    lib.ss_bitonic_sort_i32.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.ss_bitonic_sort_i32.restype = ctypes.c_int
-
-    def sort(planes, nk):
-        out = tuple(p.clone() for p in planes)
-        ptrs = (ctypes.c_void_p * len(out))(*(p.data_ptr() for p in out))
-        stream = torch.cuda.current_stream().cuda_stream
-        if lib.ss_bitonic_sort_i32(ptrs, len(out), out[0].shape[0], nk,
-                                   stream):
-            raise RuntimeError("the earlier bitonic sort failed to launch")
-        return out
-    return sort
-
-
-def bitonic_earlier_main() -> None:
-    """The bitonic sort against its earlier design, built from
-    EARLIER_BITONIC (`git show 08ae4c1:stringsearch_torch/ops/csrc/
-    bitonic.cu`, the design before this one): both checked against the plain sort on their
-    keys, then timed in turns, plain, earlier, now, now, earlier, plain, at
-    2^24 and 2^28 at the main path's shapes, beside the bound and each
-    design's passes."""
-    if not os.path.exists(EARLIER_BITONIC):
-        raise SystemExit(f"no earlier source at {EARLIER_BITONIC}")
-    sorts = {"plain sort": bitonic.plain_sort, "earlier": _earlier_bitonic(),
-             "now": bitonic.bitonic_sort}
-    turns = ("plain sort", "earlier", "now", "now", "earlier", "plain sort")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    for log2n in SIZES:
-        n = 1 << log2n
-        for c, nk in SHAPES:
-            planes = _keyed_planes("random", n, c, nk, gen)
-            want = bitonic.plain_sort(planes, nk)
-            for name, sort in sorts.items():
-                got = sort(planes, nk)
-                if not all(torch.equal(g, w)
-                           for g, w in zip(got[:nk], want[:nk])):
-                    raise RuntimeError(f"{name} sorts wrongly")
-                del got
-            del want
-            times = {name: [] for name in sorts}
-            for name in turns:
-                times[name].append(_ms(lambda: sorts[name](planes, nk),
-                                       1 if log2n >= 28 else 3))
-            print(f"2^{log2n} random C={c} keys={nk} "
-                  + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
-                              for k, v in times.items())
-                  + f"; passes now {len(bitonic.schedule(n, c))}; bound "
-                  f"{8 * c * n / BYTES_PER_S * 1e3:.4f} ms", flush=True)
-            del planes
-            torch.cuda.empty_cache()
-
-
-# where `earlier` finds the source of the design to compare with
-EARLIER_SOURCE = os.path.join(_build.BUILD_DIR, "earlier", "radix_sort.cu")
-
-
-def earlier_main() -> None:
-    """The radix sort against an earlier design of it, built from
-    EARLIER_SOURCE (a `radix_sort.cu` with the same C interface, for
-    example the parent commit's, `git show HEAD~1:<path> > <file>`): both
-    checked against the plain sort, then timed at 2^28 in turns, plain,
-    earlier, now, now, earlier, plain, on full-range random keys and on
-    ranks below n, beside the function's bound and each design's own
-    bytes over 3.35 TB/s."""
-    if not os.path.exists(EARLIER_SOURCE):
-        raise SystemExit(f"no earlier source at {EARLIER_SOURCE}")
-    earlier = radix_sort.build("earlier_radix_sort", EARLIER_SOURCE)
-    now = radix_sort.load_library()
-    sorts = {
-        "plain sort": bitonic.plain_sort,
-        "earlier": lambda p, nk: radix_sort.launch_sort(earlier, p, nk),
-        "now": lambda p, nk: radix_sort.launch_sort(now, p, nk),
-    }
-    turns = ("plain sort", "earlier", "now", "now", "earlier", "plain sort")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    n = 1 << 28
-    # the main path's shapes, and the six-plane launch of a `wide_sort`
-    for kind in ("random", "ranks"):
-        for c, nk in SHAPES + ((6, 5),):
-            planes = _keyed_planes(kind, n, c, nk, gen)
-            want = bitonic.plain_sort(planes, nk)
-            for name, sort in sorts.items():
-                got = sort(planes, nk)
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    raise RuntimeError(f"{name} sorts wrongly")
-                del got
-            del want
-            times = {name: [] for name in sorts}
-            for name in turns:
-                times[name].append(_ms(lambda: sorts[name](planes, nk)))
-            live = radix_sort.plan(planes, nk)[1]
-            ms = {
-                "bound": 8 * c * n / BYTES_PER_S * 1e3,
-                "earlier design bytes": 4 * nk * (2 * c + 1) * 4 * n
-                / BYTES_PER_S * 1e3,
-                "design bytes": radix_sort.design_bytes(n, c, nk, live)
-                / BYTES_PER_S * 1e3,
-            }
-            print(f"2^28 {kind} C={c} keys={nk} "
-                  + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
-                              for k, v in times.items())
-                  + f"; live passes {sum(live)} of {len(live)}; "
-                  + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()),
-                  flush=True)
-            del planes
-            torch.cuda.empty_cache()
-
-
 def main(argv=None) -> None:
     families = {"sort": sort_main, "bitonic": bitonic_main,
-                "dest": dest_main, "earlier": earlier_main,
-                "bitonic_earlier": bitonic_earlier_main,
-                "bitonic_passes": bitonic_passes_main}
+                "dest": dest_main, "bitonic_passes": bitonic_passes_main}
     chosen = list(sys.argv[1:] if argv is None else argv) or [
         "sort", "bitonic", "dest"]
     for name in chosen:

@@ -8,14 +8,22 @@ an edited source or flag builds a fresh library instead of loading a stale
 one. The compiler writes to a per-process temporary name that is renamed
 into place, so concurrent processes (test workers) never load a half-written
 file. Importing this module compiles nothing.
+
+Each kernel library is one `Library`, the only code that loads, declares
+and calls it; `on_cuda` is the rule by which every wrapper picks its
+kernel or its plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
+
+import torch
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 
@@ -65,3 +73,77 @@ def build_library(name: str, sources: list[str], command: list[str]) -> str:
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)
     return path
+
+
+class Library:
+    """One CUDA kernel library: its source, the C functions its wrapper
+    calls, and the checks the wrapper makes of it.
+
+    `functions` maps each C function to (restype, argtypes), the launching
+    ones with the stream as their last argument; `errors` names the
+    function that turns a launch's return code into its message; `check`,
+    if given, is called with the loaded library once and raises where its
+    limits are not the wrapper's. Making one builds nothing: the first
+    `load` (or `call`) builds the source with `nvcc` and NVCC_FLAGS.
+    """
+
+    def __init__(self, name: str, source: str, functions: dict,
+                 errors: str, check=None):
+        self.name = name
+        self.source = source
+        self.functions = {**functions,
+                          errors: (ctypes.c_char_p, [ctypes.c_int])}
+        self.errors = errors
+        self.check = check
+        self._lock = threading.Lock()
+        self._lib = None
+
+    def load(self) -> ctypes.CDLL:
+        """Build (first call only), load and declare the library."""
+        if self._lib is None:
+            with self._lock:
+                if self._lib is None:
+                    lib = ctypes.CDLL(build_library(
+                        self.name, [self.source], [nvcc(), *NVCC_FLAGS]))
+                    for fn, (restype, argtypes) in self.functions.items():
+                        getattr(lib, fn).restype = restype
+                        getattr(lib, fn).argtypes = argtypes
+                    if self.check is not None:
+                        self.check(lib)
+                    self._lib = lib
+        return self._lib
+
+    def variant(self, source: str) -> "Library":
+        """The library built from `source`, a patched copy of its source
+        with the same C interface, named by its file: built and loaded
+        now, and not held to `check`, since a variant may change a
+        limit."""
+        name = os.path.splitext(os.path.basename(source))[0]
+        lib = Library(name, source, self.functions, self.errors)
+        lib.load()
+        return lib
+
+    def call(self, fn: str, device, *args) -> None:
+        """Call `fn` with `args` and the current stream of the CUDA
+        `device`. Raises RuntimeError with the library's message where the
+        launch failed."""
+        lib = self.load()
+        with torch.cuda.device(device):
+            rc = getattr(lib, fn)(
+                *args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{fn} launch failed: "
+                f"{getattr(lib, self.errors)(rc).decode()} (code {rc})")
+
+
+def on_cuda(device: torch.device, what: str) -> bool:
+    """Which version of a step runs for tensors on `device`: True (the
+    kernel) on a CUDA device, False (the plain version) on the CPU.
+    Raises ValueError on any other device, naming the tensors `what`."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"{what} must lie on the CPU or a CUDA device, got "
+                     f"{device}")

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from typing import NamedTuple
 
 import torch
@@ -53,8 +52,15 @@ _KINDS = ("sort", "group", "tile")
 # Number of kernel sorts launched by `bitonic_sort` in this process.
 launches = 0
 
-_lock = threading.Lock()
-_lib = None
+_P = ctypes.c_void_p
+LIBRARY = _build.Library("bitonic", _SOURCE, {
+    "ss_bitonic_sort_i32": (ctypes.c_int, [
+        ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, _P]),
+    "ss_bitonic_schedule": (ctypes.c_int, [
+        ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int]),
+}, "ss_cuda_error_string")
 
 
 def tile_log(num_planes: int) -> int:
@@ -223,37 +229,15 @@ def plain_bitonic_sort(operands, num_keys: int = 1, tile: int | None = None,
     return tuple(planes)
 
 
-def build(name: str, source: str) -> ctypes.CDLL:
-    """Build the kernel library `name` from `source` and load it."""
-    path = _build.build_library(
-        name, [source], [_build.nvcc(), *_build.NVCC_FLAGS])
-    lib = ctypes.CDLL(path)
-    lib.ss_bitonic_sort_i32.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    lib.ss_bitonic_sort_i32.restype = ctypes.c_int
-    lib.ss_bitonic_schedule.argtypes = [
-        ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ctypes.c_int]
-    lib.ss_bitonic_schedule.restype = ctypes.c_int
-    lib.ss_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.ss_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def load_library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = build("bitonic", _SOURCE)
-        return _lib
+    return LIBRARY.load()
 
 
-def kernel_schedule(n: int, num_planes: int, lib=None) -> list[Pass]:
+def kernel_schedule(n: int, num_planes: int) -> list[Pass]:
     """The passes the kernel library runs for one sort (its
     `ss_bitonic_schedule`), to hold against `schedule`."""
-    lib = lib or load_library()
+    lib = load_library()
     cap = 256
     buf = (ctypes.c_int * (4 * cap))()
     count = lib.ss_bitonic_schedule(n, num_planes, buf, cap)
@@ -263,26 +247,17 @@ def kernel_schedule(n: int, num_planes: int, lib=None) -> list[Pass]:
             for i in range(count)]
 
 
-def launch_sort(lib: ctypes.CDLL, planes_in: tuple, planes_out: tuple,
+def launch_sort(lib: _build.Library, planes_in: tuple, planes_out: tuple,
                 num_keys: int) -> None:
     """Launch `lib`'s sort of contiguous int32 CUDA planes of one length
     from `planes_in` into `planes_out` (which may be the same tensors), on
     the current stream. Raises if a launch failed."""
     def pointers(planes):
-        return (ctypes.c_void_p * len(planes))(
-            *(p.data_ptr() for p in planes))
+        return (_P * len(planes))(*(p.data_ptr() for p in planes))
 
-    device = planes_out[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.ss_bitonic_sort_i32(pointers(planes_in),
-                                     pointers(planes_out), len(planes_out),
-                                     planes_out[0].shape[0], num_keys,
-                                     stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"bitonic kernel launch failed: "
-            f"{lib.ss_cuda_error_string(rc).decode()} (code {rc})")
+    lib.call("ss_bitonic_sort_i32", planes_out[0].device, pointers(planes_in),
+             pointers(planes_out), len(planes_out), planes_out[0].shape[0],
+             num_keys)
 
 
 def plain_sort(operands, num_keys: int = 1) -> tuple:
@@ -336,7 +311,7 @@ def bitonic_sort(operands, num_keys: int = 1) -> tuple:
         for o, s in zip(outs, src):
             o.copy_(s)
         return outs
-    launch_sort(load_library(), src, outs, num_keys)
+    launch_sort(LIBRARY, src, outs, num_keys)
     launches += 1
     return outs
 

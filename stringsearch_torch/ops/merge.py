@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 
 import torch
 
@@ -39,34 +38,20 @@ MAX_KEY_WORDS = 64
 # Kernel launches in this process.
 launches = 0
 
-_lock = threading.Lock()
-_lib = None
 _P = ctypes.c_void_p
-
-
-def _load(path: str) -> ctypes.CDLL:
-    """Load the built library at `path` and declare its C interface."""
-    lib = ctypes.CDLL(path)
-    lib.ss_merge_split.argtypes = [
+LIBRARY = _build.Library("merge", _SOURCE, {
+    "ss_merge_split": (ctypes.c_int, [
         ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int64, ctypes.c_int, _P, _P]
-    lib.ss_merge_split.restype = ctypes.c_int
-    lib.ss_merge_split_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
-    lib.ss_merge_split_scratch_bytes.restype = ctypes.c_int64
-    lib.ss_merge_error_string.argtypes = [ctypes.c_int]
-    lib.ss_merge_error_string.restype = ctypes.c_char_p
-    return lib
+        ctypes.c_int64, ctypes.c_int, _P, _P]),
+    "ss_merge_split_scratch_bytes": (ctypes.c_int64, [ctypes.c_int64,
+                                                      ctypes.c_int]),
+}, "ss_merge_error_string")
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = _load(_build.build_library(
-                "merge", [_SOURCE], [_build.nvcc(), *_build.NVCC_FLAGS]))
-        return _lib
+    return LIBRARY.load()
 
 
 def _check(mine, theirs, num_keys: int) -> tuple:
@@ -141,12 +126,9 @@ def merge_split(mine, theirs, mine_first: bool, keep_low: bool,
     global launches
     mine, theirs = _check(mine, theirs, num_keys)
     device = mine[0].device
-    if device.type == "cpu":
+    if not _build.on_cuda(device, "merge_split planes"):
         return plain_merge_split(mine, theirs, mine_first, keep_low,
                                  num_keys)
-    if device.type != "cuda":
-        raise ValueError(f"merge_split planes must lie on the CPU or a CUDA "
-                         f"device, got {device}")
     words = check_width(mine, num_keys)
     first, second = (mine, theirs) if mine_first else (theirs, mine)
     first = [p.contiguous() for p in first]
@@ -155,23 +137,16 @@ def merge_split(mine, theirs, mine_first: bool, keep_low: bool,
     outs = tuple(torch.empty_like(p) for p in first)
     if not length:
         return outs
-    lib = load_library()
     c = len(first)
     scratch = torch.empty(
-        (lib.ss_merge_split_scratch_bytes(length, words) // 8,),
+        (load_library().ss_merge_split_scratch_bytes(length, words) // 8,),
         dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.ss_merge_split(
-            (_P * c)(*(p.data_ptr() for p in first)),
-            (_P * c)(*(p.data_ptr() for p in second)),
-            (_P * c)(*(p.data_ptr() for p in outs)),
-            (ctypes.c_int * c)(*(p.element_size() for p in first)),
-            c, num_keys, length, int(bool(keep_low)), scratch.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"ss_merge_split launch failed: "
-                           f"{lib.ss_merge_error_string(rc).decode()} "
-                           f"(code {rc})")
+    LIBRARY.call("ss_merge_split", device,
+                 (_P * c)(*(p.data_ptr() for p in first)),
+                 (_P * c)(*(p.data_ptr() for p in second)),
+                 (_P * c)(*(p.data_ptr() for p in outs)),
+                 (ctypes.c_int * c)(*(p.element_size() for p in first)),
+                 c, num_keys, length, int(bool(keep_low)),
+                 scratch.data_ptr())
     launches += 1
     return outs

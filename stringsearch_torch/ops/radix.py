@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 
 import numpy as np
 import torch
@@ -52,49 +51,34 @@ _DEST_MAX_WARPS = 32
 # Kernel launches in this process, by kernel.
 launches = {"hist": 0, "dest": 0, "place": 0, "flush": 0}
 
-_lock = threading.Lock()
-_lib = None
-
 _P = ctypes.c_void_p
-_ARGTYPES = {
-    "ss_radix_hist": [_P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P],
-    "ss_radix_dest": [_P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, _P, _P, _P],
-    "ss_radix_place": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P, _P, _P],
-    "ss_radix_flush": [_P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       _P, _P],
-}
+_INT = (ctypes.c_int, [])
 
 
-def build(name: str, source: str) -> ctypes.CDLL:
-    """Build the kernel library `name` from `source` and load it."""
-    path = _build.build_library(
-        name, [source], [_build.nvcc(), *_build.NVCC_FLAGS])
-    lib = ctypes.CDLL(path)
-    for fn, argtypes in _ARGTYPES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.ss_radix_error_string.argtypes = [ctypes.c_int]
-    lib.ss_radix_error_string.restype = ctypes.c_char_p
-    for fn in ("ss_radix_max_dest_tile", "ss_radix_max_place_tile",
-               "ss_radix_dest_per_lane"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
+def _check_lanes(lib: ctypes.CDLL) -> None:
+    if lib.ss_radix_dest_per_lane() != _DEST_PER_LANE:
+        raise RuntimeError("csrc/radix.cu and ops/radix.py disagree on the "
+                           "keys a lane of ss_radix_dest holds")
+
+
+LIBRARY = _build.Library("radix", _SOURCE, {
+    "ss_radix_hist": (ctypes.c_int, [_P, ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_int, _P, _P]),
+    "ss_radix_dest": (ctypes.c_int, [_P, ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, _P, _P, _P]),
+    "ss_radix_place": (ctypes.c_int, [_P, _P, _P, ctypes.c_int64,
+                                      ctypes.c_int, _P, _P, _P]),
+    "ss_radix_flush": (ctypes.c_int, [_P, _P, ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.c_int64, _P, _P]),
+    "ss_radix_max_dest_tile": _INT,
+    "ss_radix_max_place_tile": _INT,
+    "ss_radix_dest_per_lane": _INT,
+}, "ss_radix_error_string", _check_lanes)
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first call only) and load the radix kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = build("radix", _SOURCE)
-            if lib.ss_radix_dest_per_lane() != _DEST_PER_LANE:
-                raise RuntimeError(
-                    "csrc/radix.cu and ops/radix.py disagree on the keys a "
-                    "lane of ss_radix_dest holds")
-            _lib = lib
-        return _lib
+    return LIBRARY.load()
 
 
 def max_tiles() -> dict:
@@ -109,22 +93,10 @@ def max_tiles() -> dict:
             "place": lib.ss_radix_max_place_tile()}
 
 
-def launch(lib: ctypes.CDLL, fn: str, device, *args) -> None:
-    """Call `fn` of `lib` on the current stream of `device`. Raises if the
-    launch failed."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: "
-                           f"{lib.ss_radix_error_string(rc).decode()} "
-                           f"(code {rc})")
-
-
 def _launch(kernel: str, fn: str, device, *args) -> None:
-    """`launch` on the package's own library; counts the launch under
-    `kernel`."""
-    launch(load_library(), fn, device, *args)
+    """Call `fn` of the library on `device`'s current stream; counts the
+    launch under `kernel`."""
+    LIBRARY.call(fn, device, *args)
     launches[kernel] += 1
 
 
@@ -399,7 +371,7 @@ def block_histograms(keys: torch.Tensor, tile: int = 8192, chunk: int = 1024,
     """
     _check_int32("keys", keys)
     _check_tiling(keys.shape[0], tile, shift, chunk)
-    if keys.device.type == "cpu":
+    if not _build.on_cuda(keys.device, "keys"):
         return plain_histograms(keys, tile, shift)
     return kernel_histograms(keys, tile, shift)
 
@@ -420,7 +392,7 @@ def local_group(keys: torch.Tensor, payload: torch.Tensor, tile: int = 1024,
     if payload.shape != keys.shape:
         raise ValueError("keys and payload must have one shape")
     _check_tiling(keys.shape[0], tile, shift, chunk)
-    if keys.device.type == "cpu":
+    if not _build.on_cuda(keys.device, "keys"):
         dest, local_base = plain_dest(keys, tile, shift)
         gk, gp = plain_place(keys, payload, dest, tile)
     else:
@@ -451,7 +423,7 @@ def granule_flush(desc: torch.Tensor, src: torch.Tensor, granule: int,
                          f"{total} x {granule}")
     src = src.reshape(total, granule)
     _check_int32("src", src, dim=2)
-    if desc.device.type == "cpu":
+    if not _build.on_cuda(desc.device, "desc"):
         return plain_granule_flush(desc, src, out_rows)
     return kernel_granule_flush(desc, src, out_rows)
 

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 
 import torch
 
@@ -38,37 +37,22 @@ TILE = 16384
 # Number of sorts `radix_sort` has launched in this process.
 launches = 0
 
-_lock = threading.Lock()
-_lib = None
-
-
-def build(name: str, source: str) -> ctypes.CDLL:
-    """Build the kernel library `name` from `source` and load it."""
-    path = _build.build_library(
-        name, [source], [_build.nvcc(), *_build.NVCC_FLAGS])
-    lib = ctypes.CDLL(path)
-    pointers = ctypes.POINTER(ctypes.c_void_p)
-    lib.ss_radix_sort_i32.argtypes = [
-        pointers, pointers, pointers, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    lib.ss_radix_sort_i32.restype = ctypes.c_int
-    lib.ss_radix_sort_scratch_ints.argtypes = [ctypes.c_int64]
-    lib.ss_radix_sort_scratch_ints.restype = ctypes.c_int64
-    lib.ss_radix_sort_error_string.argtypes = [ctypes.c_int]
-    lib.ss_radix_sort_error_string.restype = ctypes.c_char_p
-    return lib
+_P = ctypes.c_void_p
+_PLANES = ctypes.POINTER(_P)
+LIBRARY = _build.Library("radix_sort", _SOURCE, {
+    "ss_radix_sort_i32": (ctypes.c_int, [
+        _PLANES, _PLANES, _PLANES, _P, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, _P]),
+    "ss_radix_sort_scratch_ints": (ctypes.c_int64, [ctypes.c_int64]),
+}, "ss_radix_sort_error_string")
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = build("radix_sort", _SOURCE)
-        return _lib
+    return LIBRARY.load()
 
 
-def launch_sort(lib: ctypes.CDLL, planes: tuple, num_keys: int) -> tuple:
+def launch_sort(lib: _build.Library, planes: tuple, num_keys: int) -> tuple:
     """Launch `lib`'s sort of contiguous int32 CUDA planes of one length
     n >= 2 on the current stream. The planes are only read (one that does
     not start on 16 bytes is copied first, as the kernel's bulk loads need);
@@ -80,21 +64,14 @@ def launch_sort(lib: ctypes.CDLL, planes: tuple, num_keys: int) -> tuple:
     device = planes[0].device
     set_a = tuple(torch.empty_like(p) for p in planes)
     set_b = tuple(torch.empty_like(p) for p in planes)
-    scratch = torch.empty((lib.ss_radix_sort_scratch_ints(n),), dtype=_I32,
-                          device=device)
+    scratch = torch.empty((lib.load().ss_radix_sort_scratch_ints(n),),
+                          dtype=_I32, device=device)
 
     def pointers(tensors):
-        return (ctypes.c_void_p * c)(*(t.data_ptr() for t in tensors))
+        return (_P * c)(*(t.data_ptr() for t in tensors))
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.ss_radix_sort_i32(pointers(planes), pointers(set_a),
-                                   pointers(set_b), scratch.data_ptr(), c, n,
-                                   num_keys, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"radix sort kernel launch failed: "
-            f"{lib.ss_radix_sort_error_string(rc).decode()} (code {rc})")
+    lib.call("ss_radix_sort_i32", device, pointers(planes), pointers(set_a),
+             pointers(set_b), scratch.data_ptr(), c, n, num_keys)
     return set_b
 
 
@@ -124,7 +101,7 @@ def radix_sort(operands, num_keys: int = 1) -> tuple:
 
     Returns new tensors; the inputs are only read (a plane that is not
     contiguous is copied first). Takes any n >= 0. Beside the c outputs the
-    sort holds c planes and `lib.ss_radix_sort_scratch_ints(n)` int32 of
+    sort holds c planes and `ss_radix_sort_scratch_ints(n)` int32 of
     scratch while it runs: 2^DIGIT_BITS 8-byte look-back words a tile of
     TILE keys, and a histogram a pass.
     """
@@ -136,7 +113,7 @@ def radix_sort(operands, num_keys: int = 1) -> tuple:
     if operands[0].shape[0] < 2:
         return tuple(op.clone() for op in operands)
     planes = tuple(op.contiguous() for op in operands)
-    out = launch_sort(load_library(), planes, num_keys)
+    out = launch_sort(LIBRARY, planes, num_keys)
     launches += 1
     return out
 

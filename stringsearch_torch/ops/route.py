@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 
 import torch
 
@@ -72,77 +71,42 @@ PLACE_CLUSTER_BYTES = 8 * 128 * 1024
 # Kernel launches in this process, by function.
 launches = {"route_partition": 0, "place_received": 0}
 
-_lock = threading.Lock()
-_lib = None
 _P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+_PTRS = ctypes.POINTER(_P)
 
 
-def _load(path: str) -> ctypes.CDLL:
-    """Load the built library at `path` and declare its C interface."""
-    lib = ctypes.CDLL(path)
-    lib.ss_route_partition.argtypes = [
-        _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(_P), ctypes.POINTER(_P),
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int, ctypes.c_int64, _P, _P, _P]
-    lib.ss_place_received.argtypes = [
-        _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(_P), ctypes.POINTER(_P),
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, _P, _P]
-    for fn in (lib.ss_route_partition, lib.ss_place_received):
-        fn.restype = ctypes.c_int
-    lib.ss_route_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int]
-    lib.ss_place_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
-    for fn in (lib.ss_route_scratch_bytes, lib.ss_place_scratch_bytes):
-        fn.restype = ctypes.c_int64
-    lib.ss_route_error_string.argtypes = [ctypes.c_int]
-    lib.ss_route_error_string.restype = ctypes.c_char_p
-    lib.ss_place_window_slots.argtypes = [ctypes.c_int]
-    return lib
+def _check_limits(lib: ctypes.CDLL) -> None:
+    got = (lib.ss_route_max_buckets(), lib.ss_route_max_planes(),
+           lib.ss_route_tile(), 4 * lib.ss_place_window_slots(4))
+    want = (MAX_BUCKETS, MAX_PLANES, ROUTE_TILE, PLACE_CLUSTER_BYTES)
+    if got != want:
+        raise RuntimeError(f"{lib._name}: limits {got}, the wrapper expects "
+                           f"{want}")
+
+
+LIBRARY = _build.Library("route", _SOURCE, {
+    "ss_route_partition": (_INT, [
+        _P, _INT, _I64, _I64, _INT, _INT, _INT, _I64, _INT, _INT, _PTRS,
+        _PTRS, ctypes.POINTER(_INT), ctypes.POINTER(_I64), _INT, _I64, _P,
+        _P, _P]),
+    "ss_place_received": (_INT, [
+        _P, _INT, _I64, _I64, _I64, _INT, _INT, _PTRS, _PTRS,
+        ctypes.POINTER(_INT), _INT, _P, _P]),
+    "ss_route_scratch_bytes": (_I64, [_I64, _INT, _INT]),
+    "ss_place_scratch_bytes": (_I64, [_I64, _INT]),
+    "ss_route_max_buckets": (_INT, []),
+    "ss_route_max_planes": (_INT, []),
+    "ss_route_tile": (_INT, []),
+    "ss_place_window_slots": (_INT, [_INT]),
+}, "ss_route_error_string", _check_limits)
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel library; checks that
     its limits are the ones this module splits by."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            path = _build.build_library(
-                "route", [_SOURCE], [_build.nvcc(), *_build.NVCC_FLAGS])
-            lib = _load(path)
-            got = (lib.ss_route_max_buckets(), lib.ss_route_max_planes(),
-                   lib.ss_route_tile(), 4 * lib.ss_place_window_slots(4))
-            want = (MAX_BUCKETS, MAX_PLANES, ROUTE_TILE,
-                    PLACE_CLUSTER_BYTES)
-            if got != want:
-                raise RuntimeError(f"{path}: limits {got}, the wrapper "
-                                   f"expects {want}")
-            _lib = lib
-        return _lib
-
-
-def _call(lib, fn: str, device, *args) -> None:
-    """Call `fn` of `lib` on the current stream of `device`. Raises if a
-    launch failed."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: "
-                           f"{lib.ss_route_error_string(rc).decode()} "
-                           f"(code {rc})")
-
-
-def _on_cuda(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{what} must lie on the CPU or a CUDA device, got "
-                     f"{t.device}")
+    return LIBRARY.load()
 
 
 def _arrays(planes) -> tuple:
@@ -297,20 +261,20 @@ def route_partition(src, length: int, p: int, planes, fills, cap: int,
     """
     planes, fills = _check_route(src, length, p, planes, fills, cap,
                                  windows)
-    if not _on_cuda(src, "src"):
+    if not _build.on_cuda(src.device, "src"):
         return plain_route_partition(src, length, p, planes, fills, cap,
                                      clamp, windows)
     sends, over, counts, calls = launch_route(
-        load_library(), src, length, p, planes, fills, cap, clamp, windows)
+        LIBRARY, src, length, p, planes, fills, cap, clamp, windows)
     launches["route_partition"] += calls
     return sends, over, counts
 
 
-def launch_route(lib, src, length: int, p: int, planes, fills, cap: int,
-                 clamp: bool, windows: int) -> tuple:
-    """`route_partition` on the card through `lib` (this module's library
-    or another build of `csrc/route.cu`'s interface): the library calls of
-    `launch_plan`, on one scratch. Returns (buffers, over, counts,
+def launch_route(lib: _build.Library, src, length: int, p: int, planes,
+                 fills, cap: int, clamp: bool, windows: int) -> tuple:
+    """`route_partition` on the card through `lib` (this module's
+    `LIBRARY` or a variant of it): the library calls of `launch_plan`, on
+    one scratch. Returns (buffers, over, counts,
     library calls): the counts are copied from the head of the scratch,
     where the calls keep the row counts, so that the scratch goes with the
     call."""
@@ -327,8 +291,8 @@ def launch_route(lib, src, length: int, p: int, planes, fills, cap: int,
     plan = launch_plan(p, windows, len(planes))
     # the first call zeroes the flag and the row counts in the scratch
     scratch = torch.empty(
-        (lib.ss_route_scratch_bytes(n, plan[0][1], p) // 4,), dtype=_I32,
-        device=device)
+        (lib.load().ss_route_scratch_bytes(n, plan[0][1], p) // 4,),
+        dtype=_I32, device=device)
     calls = 0
     for bucket0, buckets, groups in plan:
         for c0, count in groups:
@@ -336,11 +300,11 @@ def launch_route(lib, src, length: int, p: int, planes, fills, cap: int,
             outs, _ = _arrays(sends[c0:c0 + count])
             values = (ctypes.c_int64 * count)(
                 *(int(f) for f in fills[c0:c0 + count]))
-            _call(lib, "ss_route_partition", device, src.data_ptr(),
-                  src.element_size(), n, length, p, windows,
-                  int(bool(clamp)), bucket0, buckets, int(c0 == 0), ins,
-                  outs, widths, values, count, cap, over.data_ptr(),
-                  scratch.data_ptr())
+            lib.call("ss_route_partition", device, src.data_ptr(),
+                     src.element_size(), n, length, p, windows,
+                     int(bool(clamp)), bucket0, buckets, int(c0 == 0), ins,
+                     outs, widths, values, count, cap, over.data_ptr(),
+                     scratch.data_ptr())
             calls += 1
     return tuple(sends), over, scratch[:p].clone(), calls
 
@@ -402,19 +366,18 @@ def place_received(recv_g, recvs, length: int, windows: int = 1) -> tuple:
     the run of that window in each row. With one window the rows may be
     in any order."""
     recvs = _check_place(recv_g, recvs, length, windows)
-    if not _on_cuda(recv_g, "recv_g"):
+    if not _build.on_cuda(recv_g.device, "recv_g"):
         return plain_place_received(recv_g, recvs, length, windows)
-    outs, calls = launch_place(load_library(), recv_g, recvs, length,
-                               windows)
+    outs, calls = launch_place(LIBRARY, recv_g, recvs, length, windows)
     launches["place_received"] += calls
     return outs
 
 
-def launch_place(lib, recv_g, recvs, length: int, windows: int) -> tuple:
-    """`place_received` on the card through `lib` (this module's library
-    or another build of `csrc/route.cu`'s interface): one library call a
-    group of operands of `launch_plan`. Returns (outputs, library
-    calls)."""
+def launch_place(lib: _build.Library, recv_g, recvs, length: int,
+                 windows: int) -> tuple:
+    """`place_received` on the card through `lib` (this module's
+    `LIBRARY` or a variant of it): one library call a group of operands of
+    `launch_plan`. Returns (outputs, library calls)."""
     recv_g = recv_g.contiguous()
     recvs = [t.contiguous() for t in recvs]
     device = recv_g.device
@@ -423,14 +386,14 @@ def launch_place(lib, recv_g, recvs, length: int, windows: int) -> tuple:
     # a [rows, cols] buffer: each row is one sender's
     rows = recv_g.shape[0] if recv_g.dim() == 2 else 1
     scratch = torch.empty(
-        (max(lib.ss_place_scratch_bytes(rows, windows), 8) // 8,),
+        (max(lib.load().ss_place_scratch_bytes(rows, windows), 8) // 8,),
         dtype=torch.int64, device=device)
     (_bucket0, _buckets, groups), = launch_plan(1, 1, len(recvs))
     for c0, count in groups:
         ins, widths = _arrays(recvs[c0:c0 + count])
         dst, _ = _arrays(outs[c0:c0 + count])
-        _call(lib, "ss_place_received", device, recv_g.data_ptr(),
-              recv_g.element_size(), rows, recv_g.numel() // max(rows, 1),
-              length, windows, int(c0 == 0), ins, dst, widths, count,
-              scratch.data_ptr())
+        lib.call("ss_place_received", device, recv_g.data_ptr(),
+                 recv_g.element_size(), rows, recv_g.numel() // max(rows, 1),
+                 length, windows, int(c0 == 0), ins, dst, widths, count,
+                 scratch.data_ptr())
     return tuple(outs), len(groups)

@@ -60,7 +60,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 
 import torch
 
@@ -94,78 +93,38 @@ launches = {"pack_keys": 0, "shift_planes": 0, "head_ranks": 0,
             "shard_head_ranks": 0, "shard_pack_keys": 0,
             "shard_shift_planes": 0, "invert_ranks": 0}
 
-_lock = threading.Lock()
-_lib = None
 _P = ctypes.c_void_p
-
-
-def _load(path: str) -> ctypes.CDLL:
-    """Load the built library at `path` and declare its C interface."""
-    lib = ctypes.CDLL(path)
-    lib.ss_pack_keys.argtypes = [
-        _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-        _P, _P, _P, ctypes.c_int, _P]
-    lib.ss_shift_planes.argtypes = [
-        _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int64), _P, _P]
-    lib.ss_head_ranks.argtypes = [
-        ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.c_int64, _P, ctypes.c_int64, _P, ctypes.c_int, _P, _P, _P]
-    lib.ss_shard_pack_keys.argtypes = [
-        _P, ctypes.c_int64, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-        _P, _P, ctypes.c_int64, ctypes.c_int, _P]
-    lib.ss_shard_shift_planes.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
-        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64), _P,
-        _P]
-    lib.ss_invert_ranks.argtypes = [
-        _P, _P, ctypes.c_int64, ctypes.c_int, _P, _P, _P]
-    for fn in (lib.ss_pack_keys, lib.ss_shift_planes, lib.ss_head_ranks,
-               lib.ss_shard_pack_keys, lib.ss_shard_shift_planes,
-               lib.ss_invert_ranks):
-        fn.restype = ctypes.c_int
-    lib.ss_head_ranks_scratch_bytes.argtypes = [ctypes.c_int64]
-    lib.ss_head_ranks_scratch_bytes.restype = ctypes.c_int64
-    lib.ss_invert_ranks_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
-    lib.ss_invert_ranks_scratch_bytes.restype = ctypes.c_int64
-    lib.ss_steps_error_string.argtypes = [ctypes.c_int]
-    lib.ss_steps_error_string.restype = ctypes.c_char_p
-    return lib
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+_PTRS = ctypes.POINTER(_P)
+LIBRARY = _build.Library("steps", _SOURCE, {
+    "ss_pack_keys": (_INT, [_P, _I64, _I64, _INT, _I64, _P, _P, _P, _INT,
+                            _P]),
+    "ss_shift_planes": (_INT, [_P, _I64, _I64, _INT, _INT, _PTRS,
+                               ctypes.POINTER(_I64), _P, _P]),
+    "ss_head_ranks": (_INT, [_PTRS, ctypes.POINTER(_INT), _INT, _I64, _P,
+                             _I64, _P, _INT, _P, _P, _P]),
+    "ss_shard_pack_keys": (_INT, [_P, _I64, _P, _I64, _INT, _I64, _P, _P,
+                                  _I64, _INT, _P]),
+    "ss_shard_shift_planes": (_INT, [_I64, _I64, _INT, _INT, _PTRS, _PTRS,
+                                     _PTRS, ctypes.POINTER(_I64),
+                                     ctypes.POINTER(_I64), _P, _P]),
+    "ss_invert_ranks": (_INT, [_P, _P, _I64, _INT, _P, _P, _P]),
+    "ss_head_ranks_scratch_bytes": (_I64, [_I64]),
+    "ss_invert_ranks_scratch_bytes": (_I64, [_I64, _INT]),
+}, "ss_steps_error_string")
 
 
 def load_library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = _load(_build.build_library(
-                "steps", [_SOURCE], [_build.nvcc(), *_build.NVCC_FLAGS]))
-        return _lib
+    return LIBRARY.load()
 
 
 def _launch(kernel: str, fn: str, device, *args) -> None:
-    """Call `fn` of the library on the current stream of `device` and count
-    the launch under `kernel`. Raises if the launch failed."""
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: "
-                           f"{lib.ss_steps_error_string(rc).decode()} "
-                           f"(code {rc})")
+    """Call `fn` of the library on `device`'s current stream and count the
+    launch under `kernel`."""
+    LIBRARY.call(fn, device, *args)
     launches[kernel] += 1
-
-
-def _on_cuda(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{what} must lie on the CPU or a CUDA device, got "
-                     f"{t.device}")
 
 
 def chunk_len(n: int, chunk) -> int:
@@ -226,7 +185,7 @@ def pack_keys(text, depth: int, chunk=None, idx=_I32) -> tuple:
     order. The chunk index and the position have dtype `idx`.
     """
     _check_pack(text, depth, idx)
-    if not _on_cuda(text, "text"):
+    if not _build.on_cuda(text.device, "text"):
         return plain_pack_keys(text, depth, chunk, idx)
     n = text.shape[0]
     c = chunk_len(n, chunk)
@@ -297,7 +256,7 @@ def shift_planes(rank, shifts, chunk=None) -> list:
     copied.
     """
     shifts = _check_shift(rank, shifts)
-    if not _on_cuda(rank, "rank"):
+    if not _build.on_cuda(rank.device, "rank"):
         return plain_shift_planes(rank, shifts, chunk)
     n = rank.shape[0]
     c = chunk_len(n, chunk)
@@ -414,7 +373,7 @@ def head_ranks(out):
     """
     out = _check_heads(out)
     sa_s = out[-1]
-    if not _on_cuda(sa_s, "the sorted planes"):
+    if not _build.on_cuda(sa_s.device, "the sorted planes"):
         return plain_head_ranks(out)
     rank_s, count = _launch_heads("head_ranks", out[:-1], sa_s.shape[0],
                                   None, 0, sa_s.dtype, sa_s.device)
@@ -463,21 +422,27 @@ def invert_ranks(sa_s, rank_s, out=None):
     first n slots written and the rest left as they were.
     """
     _check_invert(sa_s, rank_s, out)
-    if not _on_cuda(sa_s, "sa_s"):
+    if not _build.on_cuda(sa_s.device, "sa_s"):
         return plain_invert_ranks(sa_s, rank_s, out)
-    n = sa_s.shape[0]
     rank = torch.empty_like(rank_s) if out is None else out
-    if not n:
+    if not sa_s.shape[0]:
         return rank
-    sa_s, rank_s = sa_s.contiguous(), rank_s.contiguous()
+    launch_invert(LIBRARY, sa_s.contiguous(), rank_s.contiguous(), rank)
+    launches["invert_ranks"] += 1
+    return rank
+
+
+def launch_invert(lib: _build.Library, sa_s, rank_s, rank) -> None:
+    """`invert_ranks` of n >= 1 contiguous CUDA planes into the contiguous
+    `rank`, through `lib` (this module's library or a variant of it)."""
+    n = sa_s.shape[0]
     width = rank_s.element_size()
-    nbytes = load_library().ss_invert_ranks_scratch_bytes(n, width)
+    nbytes = lib.load().ss_invert_ranks_scratch_bytes(n, width)
     scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=sa_s.device)
                if nbytes else None)
-    _launch("invert_ranks", "ss_invert_ranks", sa_s.device, sa_s.data_ptr(),
-            rank_s.data_ptr(), n, width, rank.data_ptr(),
-            None if scratch is None else scratch.data_ptr())
-    return rank
+    lib.call("ss_invert_ranks", sa_s.device, sa_s.data_ptr(),
+             rank_s.data_ptr(), n, width, rank.data_ptr(),
+             None if scratch is None else scratch.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -560,7 +525,7 @@ def shard_head_ranks(keys, prev, offset: int, idx) -> tuple:
     last slot, which both need the neighbouring shards.
     """
     keys = _check_shard(keys, prev, offset, idx)
-    if not _on_cuda(keys[0], "the key planes"):
+    if not _build.on_cuda(keys[0].device, "the key planes"):
         return plain_shard_head_ranks(keys, prev, offset, idx)
     if prev is not None:
         prev = prev.to(torch.int64).contiguous()
@@ -617,7 +582,7 @@ def shard_pack_keys(chunk, halo, depth: int, offset: int, idx=_I32) -> tuple:
     dtype `idx`.
     """
     _check_shard_pack(chunk, halo, depth, offset, idx)
-    if not _on_cuda(chunk, "chunk"):
+    if not _build.on_cuda(chunk.device, "chunk"):
         return plain_shard_pack_keys(chunk, halo, depth, offset, idx)
     n = chunk.shape[0]
     nk = depth // 4
@@ -728,12 +693,9 @@ def shard_shift_planes(windows, length: int, offset: int, n_pad: int, idx,
     device = _device_of(device)
     windows = _check_shard_shift(windows, length, offset, n_pad, idx,
                                  device)
-    if device.type == "cpu":
+    if not _build.on_cuda(device, "the windows"):
         return plain_shard_shift_planes(windows, length, offset, n_pad, idx,
                                         device)
-    if device.type != "cuda":
-        raise ValueError(f"the windows must lie on the CPU or a CUDA device, "
-                         f"got {device}")
     if idx == _I32 and n_pad >= 1 << 31:
         raise ValueError("int32 positions need n_pad < 2^31")
     windows = [(h, *(None if t is None else t.contiguous()

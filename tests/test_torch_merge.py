@@ -313,19 +313,26 @@ def test_sharded_sort_merges_through_merge_split(merges, p):
 
 
 def test_plain_version_is_reached_only_from_the_cpu(monkeypatch):
-    """`merge_split` takes its plain version only for CPU tensors; any other
-    device goes to the kernel's branch (here a device that is neither,
-    which it refuses)."""
+    """`merge_split` and `shard_head_ranks` take their plain versions only
+    for CPU tensors; any other device goes to the kernel's branch (here a
+    device that is neither, which `ops/_build.py:on_cuda` refuses)."""
     def refused(*args, **kwargs):
         raise AssertionError("the plain version was called")
 
-    planes = [torch.zeros(8, dtype=torch.int32, device="meta")]
     monkeypatch.setattr(merge, "plain_merge_split", refused)
-    with pytest.raises(ValueError, match="CPU or a CUDA"):
-        merge.merge_split(planes, planes, True, True, 1)
-    with pytest.raises(AssertionError, match="plain version"):
-        merge.merge_split([torch.zeros(8, dtype=torch.int32)],
-                          [torch.zeros(8, dtype=torch.int32)], True, True, 1)
+    monkeypatch.setattr(steps, "plain_shard_head_ranks", refused)
+    for device in ("meta", "cpu"):
+        planes = [torch.zeros(8, dtype=torch.int32, device=device)]
+        for call in (lambda: merge.merge_split(planes, planes, True, True, 1),
+                     lambda: steps.shard_head_ranks(planes, None, 0,
+                                                    torch.int32)):
+            if device == "meta":
+                with pytest.raises(ValueError, match="must lie on the CPU "
+                                   "or a CUDA device, got meta"):
+                    call()
+            else:
+                with pytest.raises(AssertionError, match="plain version"):
+                    call()
 
 
 def test_global_build_goes_through_both_new_steps(merges, monkeypatch):

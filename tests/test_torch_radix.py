@@ -429,13 +429,12 @@ def test_dest_kernel_on_every_warp_count_it_takes(cuda, tile, warps):
     keys, and one that is no power of two."""
     n = 13 * tile
     keys = _bits(_two_bin_keys(tile + warps, n)).to(cuda)
-    lib = radix.load_library()
 
     def launch(w):
         dest = torch.empty_like(keys)
         lb = torch.empty((13, 256), dtype=torch.int32, device=cuda)
-        radix.launch(lib, "ss_radix_dest", keys.device, keys.data_ptr(), n,
-                     tile, 24, w, dest.data_ptr(), lb.data_ptr())
+        radix.LIBRARY.call("ss_radix_dest", keys.device, keys.data_ptr(), n,
+                           tile, 24, w, dest.data_ptr(), lb.data_ptr())
         torch.cuda.synchronize()
         return dest, lb
 

@@ -351,31 +351,56 @@ def test_route_rejects_bad_arguments():
 
 
 def test_plain_versions_are_reached_only_from_the_cpu(monkeypatch):
-    """Each wrapper takes its plain version only for CPU tensors; any other
-    device goes to the kernel's branch (here a device that is neither,
-    which it refuses)."""
+    """Each wrapper that picks between its kernel and its plain version
+    (`ops/_build.py:on_cuda`) takes the plain version only for CPU
+    tensors; any other device goes to the kernel's branch (here a device
+    that is neither, which it refuses with on_cuda's ValueError)."""
+    from stringsearch_torch.ops import radix
+
     def refused(*args, **kwargs):
         raise AssertionError("the plain version was called")
 
-    for module, name in ((route, "plain_route_partition"),
-                         (route, "plain_place_received"),
-                         (steps, "plain_shard_pack_keys"),
-                         (steps, "plain_shard_shift_planes")):
+    def i32(device, n=8):
+        return torch.zeros(n, dtype=torch.int32, device=device)
+
+    def text(device):
+        return torch.zeros(8, dtype=torch.uint8, device=device)
+
+    calls = {
+        (route, "plain_route_partition"):
+            lambda d: route.route_partition(i32(d), 4, 2, (i32(d),), (0,),
+                                            4),
+        (route, "plain_place_received"):
+            lambda d: route.place_received(i32(d), (i32(d),), 4),
+        (steps, "plain_shard_pack_keys"):
+            lambda d: steps.shard_pack_keys(text(d), None, 4, 0),
+        (steps, "plain_shard_shift_planes"):
+            lambda d: steps.shard_shift_planes(
+                [(1, i32(d), i32(d))], 8, 0, 16, torch.int32,
+                torch.device(d)),
+        (steps, "plain_pack_keys"): lambda d: steps.pack_keys(text(d), 4),
+        (steps, "plain_shift_planes"):
+            lambda d: steps.shift_planes(i32(d), [1]),
+        (steps, "plain_head_ranks"):
+            lambda d: steps.head_ranks((i32(d), i32(d))),
+        (steps, "plain_invert_ranks"):
+            lambda d: steps.invert_ranks(i32(d), i32(d)),
+        (radix, "plain_histograms"):
+            lambda d: radix.block_histograms(i32(d, 1024), 1024, 1024),
+        (radix, "plain_dest"):
+            lambda d: radix.local_group(i32(d, 1024), i32(d, 1024), 1024,
+                                        chunk=1024),
+        (radix, "plain_granule_flush"):
+            lambda d: radix.granule_flush(i32(d), i32(d, 32), 4, 8, 8),
+    }
+    for module, name in calls:
         monkeypatch.setattr(module, name, refused)
-    meta = torch.zeros(8, dtype=torch.int32, device="meta")
-    text = torch.zeros(8, dtype=torch.uint8, device="meta")
-    calls = (
-        lambda x: route.route_partition(x, 4, 2, (x,), (0,), 4),
-        lambda x: route.place_received(x, (x,), 4),
-        lambda t: steps.shard_pack_keys(t, None, 4, 0),
-        lambda x: steps.shard_shift_planes([(1, x, x)], 8, 0, 16,
-                                           torch.int32, x.device),
-    )
-    for i, call in enumerate(calls):
-        with pytest.raises(ValueError, match="CPU or a CUDA"):
-            call(text if i == 2 else meta)
+    for call in calls.values():
+        with pytest.raises(ValueError, match="must lie on the CPU or a CUDA "
+                                             "device, got meta"):
+            call("meta")
         with pytest.raises(AssertionError, match="plain version"):
-            call(torch.zeros(8, dtype=torch.uint8 if i == 2 else torch.int32))
+            call("cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -133,10 +133,10 @@ def test_plain_route_takes_any_width_and_bucket_count(count, p, windows):
 
 
 class StandInLibrary:
-    """The kernel library's C interface on the CPU, for the wrappers'
-    `launch_route` and `launch_place`: each call is held to the argument
-    checks of `ss_route_partition` and `ss_place_received` in
-    csrc/route.cu and recorded; nothing is computed."""
+    """The kernel library (`route.LIBRARY`, a `_build.Library`) on the CPU,
+    for the wrappers' `launch_route` and `launch_place`: each call is held
+    to the argument checks of `ss_route_partition` and `ss_place_received`
+    in csrc/route.cu and recorded; nothing is computed."""
 
     def __init__(self):
         self.calls = []
@@ -149,7 +149,10 @@ class StandInLibrary:
     def ss_place_scratch_bytes(rows, windows):
         return 8
 
-    def call(self, fn, *args):
+    def load(self):
+        return self
+
+    def call(self, fn, _device, *args):
         if fn == "ss_route_partition":
             (_src, _sb, _n, _length, dests, windows, _clamp, bucket0,
              buckets, count, ins, _outs, widths, _fills, planes, _cap,
@@ -179,9 +182,6 @@ class Recorded:
         self.library_calls = 0
         monkeypatch.setattr(distsort, "route_partition", self.route)
         monkeypatch.setattr(distsort, "place_received", self.place)
-        monkeypatch.setattr(route, "_call",
-                            lambda lib, fn, _device, *args:
-                            lib.call(fn, *args))
 
     def route(self, src, length, p, planes, fills, cap, clamp=False,
               windows=1):
