@@ -179,7 +179,19 @@ present. Phases, each printed with its result and time:
      around each tile, P from 1 to 1100, buckets past one call's, 9 and 17
      operands, destinations at and past cap, clamped and out-of-range
      sources, int32 and int64, windows, placement by window, h at and
-     past L and n_pad.
+     past L and n_pad;
+ 18. a full round's keys in the bits their values need, on the Fibonacci
+     word of 2^28 bytes: its build (whose early rounds sort by dense ranks
+     with lifted shift planes, so `dense_ranks` launches > 0) checked by
+     the host oracle's sufcheck, with its wall; `dense_ranks` on the
+     initial sort's head-slot ranks (24 groups) and on phase 3's text's,
+     and `shift_planes` with lifted markers of the first round, each
+     against its plain version, tolerance 0, and timed beside its plain
+     version and its bytes bound; the round's C=5 sort on those narrow
+     keys and on head slots, timed; then `dense_ranks` on the edge cases
+     of tests/test_torch_round_keys.py: n around its tile, random groups,
+     all heads, one group, heads at tile starts, int32 and int64, into a
+     new plane and in place.
 Phases 9, 12 and 13 print the seconds of each command or step.
 Phases 7 to 10 each zero the sort kernels' launch counts first and need
 the radix sort's > 0 and the bitonic sort's 0 afterwards; phases 11 to 14
@@ -223,6 +235,14 @@ SORT_SHAPES = (("invert", 2, 1), ("initial", 4, 3), ("round", 5, 4))
 ENGINES = "doubling,dc3,bstar"
 # the step kernels of the flat build (phase 3)
 FLAT_STEPS = ("pack_keys", "shift_planes", "head_ranks", "invert_ranks")
+
+
+def fibonacci(n: int):
+    """The first n bytes of the Fibonacci word over a < b (phase 18)."""
+    a, b = np.array([97], np.uint8), np.array([97, 98], np.uint8)
+    while b.size < n:
+        a, b = b, np.concatenate([b, a])
+    return b[:n]
 # radix sort launches of the global build at 2^28 on four shards, and of
 # one process of two, before merge_split took the merges (PERF.md §6),
 # and before the routing kernels took the routing sorts
@@ -2796,6 +2816,123 @@ def phase17_route(text_np, card: str) -> dict:
     return reports
 
 
+def phase18_round_keys(text_np, card: str) -> dict:
+    """`dense_ranks` and the lifted `shift_planes` at 2^28 on the
+    Fibonacci word, beside the build that uses them; returns
+    `dense_ranks`' report."""
+    import torch
+    from stringsearch_torch import oracle
+    from stringsearch_torch.engines import doubling
+    from stringsearch_torch.ops import steps
+    from stringsearch_torch.ops.bitonic import device_sort
+
+    n = 1 << LOG2N
+    fib_np = fibonacci(n)
+    fib = torch.from_numpy(fib_np.copy()).to("cuda")
+    report = {"shapes": []}
+    launches = steps.launches["dense_ranks"]
+    t0 = time.perf_counter()
+    sa = doubling.build_sa(fib, depth=12)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    report["launches"] = steps.launches["dense_ranks"] - launches
+    check(report["launches"] > 0, "the Fibonacci build launched no "
+                                  "dense_ranks kernel")
+    rc = oracle.sufcheck(fib_np, sa.cpu().numpy())
+    say(f"phase 18: Fibonacci build n=2^{LOG2N}: {build_s:.4f} s, "
+        f"{report['launches']} dense_ranks launches, oracle.sufcheck rc={rc}")
+    check(rc == 0, f"oracle.sufcheck rejected the Fibonacci SA (rc={rc})")
+    del sa
+    torch.cuda.empty_cache()
+
+    def held(kernel, shape, got, want, fn, plain, nbytes):
+        err = _exact_err(got, want)
+        ms = cuda_ms(fn, 10)
+        plain_ms = cuda_ms(plain, 2)
+        bounds = bound(nbytes, 0)
+        say(f"phase 18: {kernel} {shape} n=2^{LOG2N}: max_abs_err {err} "
+            f"(tolerance 0); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"bound {bounds['bound_ms']} ms ({nbytes} B), share "
+            f"{bounds['bound_ms'] / ms:.3f} [{card}]")
+        check(err == 0, f"{kernel} {shape} disagrees with its plain version")
+        if kernel == "dense_ranks":
+            report["shapes"].append({
+                "shape": shape, "n": n, "max_abs_err": err,
+                "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                "library_ms": None, "replaced_ms": None, **bounds})
+
+    for name, data in (("Fibonacci", fib),
+                       ("enwik_like", torch.from_numpy(text_np.copy())
+                        .to("cuda"))):
+        sa_s, rank_s, count = doubling._initial_sorted(data, 12)
+        tied, groups = steps.read_counts(count)
+        held("dense_ranks", f"{name}'s initial ranks ({groups} groups)",
+             [steps.dense_ranks(rank_s)], [steps.plain_dense_ranks(rank_s)],
+             lambda: steps.dense_ranks(rank_s),
+             lambda: steps.plain_dense_ranks(rank_s), 8 * n)
+        if name != "Fibonacci":
+            del sa_s, rank_s, data
+            torch.cuda.empty_cache()
+            continue
+        dense, lifts, passes = doubling._round_keys(
+            groups, n, n, doubling._round_shifts(12, 4, n), False)
+        check(dense and all(lifts), "the Fibonacci word's first round "
+                                    "takes no dense keys")
+        rank = doubling._scatter_to_text_order(sa_s,
+                                               steps.dense_ranks(rank_s))
+        shifts = [12, 24, 36]
+        held("shift_planes", "lifted, fan 4, h = 12",
+             steps.shift_planes(rank, shifts, None, lifts),
+             steps.plain_shift_planes(rank, shifts, None, lifts),
+             lambda: steps.shift_planes(rank, shifts, None, lifts),
+             lambda: steps.plain_shift_planes(rank, shifts, None, lifts),
+             20 * n)
+        planes = steps.shift_planes(rank, shifts, None, lifts)
+        narrow_ms = cuda_ms(lambda: device_sort((rank, *planes), 4), 3)
+        del rank, planes
+        torch.cuda.empty_cache()
+        rank = doubling._scatter_to_text_order(sa_s, rank_s)
+        planes = steps.shift_planes(rank, shifts)
+        slot_ms = cuda_ms(lambda: device_sort((rank, *planes), 4), 3)
+        say(f"phase 18: the first round's C=5 sort: {narrow_ms:.4f} ms on "
+            f"dense keys ({passes} live passes reckoned), {slot_ms:.4f} ms "
+            f"on head slots [{card}]")
+        report["round_sort_ms"] = {"dense": round(narrow_ms, 4),
+                                   "slot": round(slot_ms, 4),
+                                   "passes": passes}
+        del rank, planes, sa_s, rank_s, data
+        torch.cuda.empty_cache()
+    del fib
+
+    cases, err = 0, 0
+    for n_edge in (1, 2, 3, steps.DENSE_TILE - 1, steps.DENSE_TILE,
+                   steps.DENSE_TILE + 1, (1 << 20) + 12345):
+        g = torch.Generator().manual_seed(n_edge)
+        keys = torch.sort(torch.randint(0, max(n_edge // 3, 1), (n_edge,),
+                                        generator=g))[0].to(torch.int32)
+        ranks = [steps.plain_head_ranks(
+                     [keys, torch.arange(n_edge, dtype=torch.int32)])[1],
+                 torch.arange(n_edge), torch.zeros(n_edge, dtype=torch.int64),
+                 (torch.arange(n_edge) // steps.DENSE_TILE)
+                 * steps.DENSE_TILE]
+        for idx in (torch.int32, torch.int64):
+            for r in ranks:
+                r = r.to(idx).to("cuda")
+                want = steps.plain_dense_ranks(r)
+                err = max(err, _exact_err([steps.dense_ranks(r)], [want]))
+                # in place of the head slots, as the round loop writes them
+                err = max(err, _exact_err([steps.dense_ranks(r, out=r)],
+                                          [want]))
+                cases += 2
+    say(f"phase 18: dense_ranks on {cases} edge cases: max_abs_err {err} "
+        f"(tolerance 0)")
+    check(err == 0, "dense_ranks disagrees with its plain version on an "
+                    "edge case")
+    report["edge_cases"] = cases
+    report["edge_max_abs_err"] = err
+    return report
+
+
 def main() -> int:
     # One card: the first that CUDA would use, and the only one torch sees.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -2879,6 +3016,9 @@ def main() -> int:
         t0 = time.perf_counter()
         route_report = phase17_route(text_np, card)
         say(f"phase 17: passed in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        dense_report = phase18_round_keys(text_np, card)
+        say(f"phase 18: passed in {time.perf_counter() - t0:.2f} s")
         del text_np
     except SmokeFailure as e:
         say(f"FAIL: {e}")
@@ -2969,6 +3109,30 @@ def main() -> int:
             "shapes": rep["shapes"],
             "edge_cases": rep["edge_cases"],
         })
+
+    # dense_ranks: launches from phase 18's Fibonacci build; headline, the
+    # first shape timed (the Fibonacci word's initial ranks)
+    head = dense_report["shapes"][0]
+    step_kernels.append({
+        "name": "steps_dense_ranks",
+        "route": "cuda",
+        "source": "stringsearch_torch/ops/csrc/steps.cu",
+        "replaces": "no pl.pallas_call and no jnp op: the JAX package sorts "
+                    "every full round by head slots",
+        "launches": dense_report["launches"],
+        "max_abs_err": max([s["max_abs_err"] for s in dense_report["shapes"]]
+                           + [dense_report["edge_max_abs_err"]]),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "replaced_route_ms": None,
+        "timed_shape": head["shape"],
+        "shapes": dense_report["shapes"],
+        "edge_cases": dense_report["edge_cases"],
+        "round_sort_ms": dense_report["round_sort_ms"],
+    })
 
     # the global build's two kernels: launches from phase 13's first build;
     # headline, the first shape timed (the low half of the first merge;

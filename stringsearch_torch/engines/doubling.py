@@ -18,7 +18,15 @@ What differs from the JAX package, and why:
     read the tied count with one `.item()` per round; `h` is a host int.
   * The steps between the sorts are `ops/steps.py`: `pack_keys`,
     `shift_planes` and `head_ranks`, each one hand-written kernel on
-    CUDA, where XLA fuses the reference's jnp ops. The inverse
+    CUDA, where XLA fuses the reference's jnp ops.
+  * A full round's keys are written in the bits their values need, so
+    that the radix sort's dead-digit skip engages (`_round_keys`): where
+    it saves passes, the round sorts by dense ranks, each group's index
+    among the groups (`dense_ranks`), in place of head slots, and a shift
+    plane whose values stay below 2^24 takes non-negative past-the-end
+    markers (`shift_planes`' `lift`). Both keep the keys' order, so the
+    sorted order, the head-slot ranks a round returns and its tied count
+    are the reference's. The inverse
     permutation of a sorted order's ranks is `invert_ranks`, a scatter
     (a hand-written kernel on CUDA), where the reference sorts (sa, rank_s)
     by sa. Group heads (the
@@ -66,14 +74,16 @@ from stringsearch_torch.core.types import (
     as_text_tensor,
 )
 from stringsearch_torch.harness.tracing import span, wait_span
-from stringsearch_torch.ops.bitonic import device_sort
+from stringsearch_torch.ops.bitonic import device_sort, sort_passes
 from stringsearch_torch.ops.steps import (
     BIAS as _BIAS,
     chunk_len as _chunk_len,
+    dense_ranks,
     head_ranks,
     heads_and_tied as _heads_and_tied,
     invert_ranks,
     pack_keys,
+    read_counts,
     segment_heads as _segment_heads,
     shift_planes,
 )
@@ -134,6 +144,14 @@ def _read_count(count_t) -> int:
         return int(count_t)
 
 
+def _read_counts(count_t) -> tuple:
+    """The tied count and the group count of a `head_ranks` count on the
+    host, (tied, groups), in one read (`read_counts`): the round loop's one
+    host wait, in the span `doubling.wait`."""
+    with wait_span("doubling.wait"):
+        return read_counts(count_t)
+
+
 def _shift_ranks(rank, h: int, chunk=None):
     """rank_h[i] = rank[i+h], or the marker -(i+1) past the end of i's
     chunk, i counted from the chunk's start.
@@ -173,14 +191,15 @@ def _initial_sorted(text, depth: int = 24, chunk=None, idx=_I32):
 
 
 def _initial(sort):
-    """sort(), an initial sort that returns (sa_s, rank_s, count_tied),
-    with its tied count read on the host, in the span `doubling.initial`
-    (attribute `tied`). Returns (sa_s, rank_s, count)."""
+    """sort(), an initial sort that returns (sa_s, rank_s, count_tied)
+    as `head_ranks` does, with its tied and group counts read on the host,
+    in the span `doubling.initial` (attributes `tied`, `groups`). Returns
+    (sa_s, rank_s, count, groups)."""
     with span("doubling.initial") as sp:
         sa_s, rank_s, count = sort()
-        count = _read_count(count)
-        sp.set(tied=count)
-    return sa_s, rank_s, count
+        count, groups = _read_counts(count)
+        sp.set(tied=count, groups=groups)
+    return sa_s, rank_s, count, groups
 
 
 def _initial_full(text, depth: int = 24):
@@ -196,24 +215,70 @@ def _full_round(rank, h: int, fan: int = 2):
     return _scatter_to_text_order(sa_s, rank_s), sa_s, rank_s, count
 
 
-def _full_round_sorted(rank, h: int, fan: int = 2, chunk=None):
+def _round_shifts(h: int, fan: int, chunk: int) -> list:
+    """The shifts of a full round's fan - 1 shifted planes, k h for k = 1
+    .. fan - 1, each clamped to the chunk."""
+    # k*h can overflow for huge n: cap h at chunk//k + 1 first, so the
+    # product is <= chunk + k, then clamp
+    return [min(min(h, chunk // k + 1) * k, chunk) for k in range(1, fan)]
+
+
+def _full_round_sorted(rank, h: int, fan: int = 2, chunk=None, lift=False):
     """One full-width round from TEXT-order ranks, without the trailing
     inverse permutation. Returns (sa_s, rank_s, count) in sorted order.
 
     The keys are (rank[i], rank[i+h], .., rank[i+(fan-1)h]), each a
     depth-h class, so one round multiplies the resolved depth by `fan`.
     Ranks of different chunks never meet, so the first key keeps the
-    chunks apart.
+    chunks apart. `lift` (`shift_planes`') writes the shifted planes with
+    non-negative markers; any order-keeping ranks give the same result.
     """
     n = rank.shape[0]
     chunk = _chunk_len(n, chunk)
-    # k*h can overflow for huge n: cap h at chunk//k + 1 first, so the
-    # product is <= chunk + k and shift_planes clamps the rest
-    planes = shift_planes(
-        rank, [min(h, chunk // k + 1) * k for k in range(1, fan)], chunk)
+    planes = shift_planes(rank, _round_shifts(h, fan, chunk), chunk, lift)
     out = device_sort((rank, *planes), num_keys=fan)
     del planes
     return _ranks_sorted_only(out)
+
+
+# A key plane whose values all lie in [0, 2^24) has a dead top radix
+# digit: lifted shift planes, and dense ranks, are used only there.
+_NARROW = 1 << 24
+
+
+def _shift_spans(bound: int, s: int, chunk: int, lifted: bool) -> list:
+    """The values of a round's shift plane s over ranks in [0, bound), as
+    inclusive spans: the past-the-end markers (none for s = 0) and the
+    continuing ranks (none where s clamps to the chunk)."""
+    if lifted:
+        spans = [(0, s - 1)] + ([(s, s + bound - 1)] if s < chunk else [])
+    else:
+        spans = [(-chunk, s - chunk - 1)] + (
+            [(0, bound - 1)] if s < chunk else [])
+    return spans[1:] if s == 0 else spans
+
+
+def _round_keys(groups: int, n: int, chunk: int, shifts, wide: bool) -> tuple:
+    """How a full round writes its keys: (dense, lifts, passes).
+
+    Head slots lie in [0, n); dense ranks in [0, groups). A shift plane is
+    lifted where its values, the ranks' bound plus the shift, fit under
+    2^24; `passes` is the radix sort's reckoned live passes. Dense ranks
+    are taken where they need fewer passes than head slots, and only
+    while groups < 2^24.
+    """
+    def reckon(bound):
+        lifts = [s + bound <= _NARROW for s in shifts]
+        planes = [[(0, bound - 1)]] + [
+            _shift_spans(bound, s, chunk, up) for s, up in zip(shifts, lifts)]
+        return lifts, sort_passes(planes, wide)
+
+    slot = reckon(n)
+    if groups < _NARROW:
+        dense = reckon(groups)
+        if dense[1] < slot[1]:
+            return (True, *dense)
+    return (False, *slot)
 
 
 def _extract(rank_s, sa_s, m: int, method: str = "topk"):
@@ -306,11 +371,11 @@ def _next_h(h: int, chunk: int, fan: int) -> int:
     return min(min(h, chunk // fan + 1) * fan, chunk)
 
 
-def _refine(sa_s0, rank_s0, count0: int, h0: int, levels, fan: int,
-            extract: str = "auto", adaptive: bool = True,
+def _refine(sa_s0, rank_s0, count0: int, groups0: int, h0: int, levels,
+            fan: int, extract: str = "auto", adaptive: bool = True,
             want_isa: bool = True, chunk=None):
     """Doubling rounds + cascaded compaction from a sorted initial state
-    with `count0` positions tied (a host int).
+    with `count0` positions tied in `groups0` groups (host ints).
 
     Returns (sa, isa), or (sa, sa) when `want_isa` is False and the build
     resolved in the full rounds. The state between full rounds is sorted
@@ -320,9 +385,17 @@ def _refine(sa_s0, rank_s0, count0: int, h0: int, levels, fan: int,
     `adaptive` extracts straight into the deepest level whose capacity
     holds the live tied count.
 
+    Each full round writes its keys as `_round_keys` reckons from the
+    group count and its shifts: dense ranks (`dense_ranks` of the
+    predecessor's head slots, in their place) or head slots, and lifted
+    shift planes where they fit; it returns head slots either way.
+
     Spans (`harness/tracing.py`): `doubling.round` a full round (the
     elements `n` its sort carries, the tied count `tied_in` going in and
-    `tied_out` coming out), `doubling.compact` the compaction stage from
+    `tied_out` coming out, the group count `groups` going in, its keys
+    `keys`, "dense" or "slot", and `live_passes`, the radix passes
+    `_round_keys` reckons its sort to run), `doubling.compact` the
+    compaction stage from
     its opening invert on, and inside it `doubling.extract`,
     `doubling.compact_round` (the capacity `m` its sort carries,
     `tied_in`, `tied_out`) and `doubling.shrink`.
@@ -334,16 +407,24 @@ def _refine(sa_s0, rank_s0, count0: int, h0: int, levels, fan: int,
     for i in range(1, len(caps)):
         caps[i] = min(caps[i], caps[i - 1])
 
-    sa_s, rank_s, h, count = sa_s0, rank_s0, h0, count0
+    sa_s, rank_s, h, count, groups = sa_s0, rank_s0, h0, count0, groups0
+    wide = rank_s0.dtype == torch.int64
     # no `h < chunk` guard: short suffixes may need the h == chunk marker
     # round to split, and that round always zeroes the count
     while count > caps[0]:
-        with span("doubling.round", n=n, tied_in=count) as sp:
-            rank = _scatter_to_text_order(sa_s, rank_s)  # predecessor's
-            del sa_s, rank_s
-            sa_s, rank_s, count_t = _full_round_sorted(rank, h, fan, chunk)
+        dense, lifts, passes = _round_keys(
+            groups, n, chunk, _round_shifts(h, fan, chunk), wide)
+        with span("doubling.round", n=n, tied_in=count, groups=groups,
+                  keys="dense" if dense else "slot",
+                  live_passes=passes) as sp:
+            # the head slots are not read again: dense ranks replace them
+            keys = dense_ranks(rank_s, out=rank_s) if dense else rank_s
+            rank = _scatter_to_text_order(sa_s, keys)  # predecessor's
+            del sa_s, rank_s, keys
+            sa_s, rank_s, count_t = _full_round_sorted(rank, h, fan, chunk,
+                                                       lifts)
             del rank
-            count = _read_count(count_t)
+            count, groups = _read_counts(count_t)
             sp.set(tied_out=count)
         h = _next_h(h, chunk, fan)
 
@@ -411,11 +492,11 @@ def build_with_isa(text, idx=_I32, depth: int = 24,
     """
     text = _prepare(text, idx, depth, fan, device)
     with span("doubling.build"):
-        sa_s0, rank_s0, count0 = _initial(
+        sa_s0, rank_s0, count0, groups0 = _initial(
             lambda: _initial_sorted(text, depth, chunk, idx))
         h0 = min(depth, _chunk_len(text.shape[0], chunk))
-        return _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
-                       adaptive, want_isa=True, chunk=chunk)
+        return _refine(sa_s0, rank_s0, count0, groups0, h0, levels, fan,
+                       extract, adaptive, want_isa=True, chunk=chunk)
 
 
 def build_sa(text, idx=_I32, depth: int = 24,
@@ -427,11 +508,11 @@ def build_sa(text, idx=_I32, depth: int = 24,
     partitioned index (with `chunk`) use this."""
     text = _prepare(text, idx, depth, fan, device)
     with span("doubling.build"):
-        sa_s0, rank_s0, count0 = _initial(
+        sa_s0, rank_s0, count0, groups0 = _initial(
             lambda: _initial_sorted(text, depth, chunk, idx))
         h0 = min(depth, _chunk_len(text.shape[0], chunk))
-        sa, _ = _refine(sa_s0, rank_s0, count0, h0, levels, fan, extract,
-                        adaptive, want_isa=False, chunk=chunk)
+        sa, _ = _refine(sa_s0, rank_s0, count0, groups0, h0, levels, fan,
+                        extract, adaptive, want_isa=False, chunk=chunk)
     return sa
 
 
@@ -472,9 +553,9 @@ def build_ints_with_isa(seq, idx=_I32, depth: int = 4,
         del planes
         return _ranks_sorted_only(out)
 
-    sa_s0, rank_s0, count0 = _initial(sort)
-    return _refine(sa_s0, rank_s0, count0, min(depth, n), levels, fan,
-                   want_isa=True)
+    sa_s0, rank_s0, count0, groups0 = _initial(sort)
+    return _refine(sa_s0, rank_s0, count0, groups0, min(depth, n), levels,
+                   fan, want_isa=True)
 
 
 _TRACE_DEPTH = 8  # a shallow initial sort, so traces show the rounds

@@ -39,7 +39,7 @@ import torch
 
 from stringsearch_torch.harness.tracing import span
 from stringsearch_torch.ops import _build
-from stringsearch_torch.ops.radix_sort import radix_sort
+from stringsearch_torch.ops.radix_sort import live_digits, radix_sort
 
 _SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "bitonic.cu")
 _MAX_PLANES = 6
@@ -324,6 +324,33 @@ def _key_words(key: torch.Tensor) -> tuple:
         return (key,)
     return ((key >> 32).to(torch.int32),
             ((key & 0xFFFFFFFF) - (1 << 31)).to(torch.int32))
+
+
+def sort_passes(keys, wide: bool) -> int:
+    """The radix passes `device_sort` runs on CUDA, by its plan's rule
+    (`radix_sort.live_digits`), for key planes whose values fill `keys`
+    (one list of inclusive (low, high) spans a plane, each value in the
+    int32 range) and a payload, all int64 where `wide`: one radix sort
+    of every key where it takes them all, else one a group of up to five
+    int32 key words from the last, as `wide_sort` splits them (an int64
+    key is two words, `_key_words`). A sort with no live digit runs one
+    pass, as a copy."""
+    words = []
+    for spans in keys:
+        if not wide:
+            words.append(spans)
+            continue
+        words.append([(a >> 32, b >> 32) for a, b in spans])
+        # the low word, unsigned order as signed: v mod 2^32 - 2^31
+        low = []
+        for a, b in spans:
+            low += ([(a, -1), (0, b)] if a < 0 <= b else [(a, b)])
+        words.append([(a % 2**32 - 2**31, b % 2**32 - 2**31)
+                      for a, b in low])
+    group = len(words) if not wide and len(keys) < _MAX_PLANES else _GROUP
+    return sum(max(1, sum(live_digits(w)
+                          for w in words[max(end - group, 0):end]))
+               for end in range(len(words), 0, -group))
 
 
 def wide_sort(operands, num_keys: int, narrow) -> tuple:

@@ -2,7 +2,8 @@
 //
 // Four kernels, each the fusion of a chain of PyTorch ops that
 // `engines/doubling.py` ran one op, and one pass over device memory, at a
-// time, and the invert, which it ran as a sort. None replaces a Pallas
+// time, the invert, which it ran as a sort, and dense_ranks, which narrows
+// a round's sort keys. None replaces a Pallas
 // kernel: the JAX package writes these steps as jnp ops inside its one
 // jitted build (stringsearch_tpu/engines/doubling.py:9-10, `build_sa`
 // l.370), and XLA fuses them there.
@@ -15,12 +16,16 @@
 //       0x80000000, and the position.
 //   shift_planes_kernel  replaces `_shift_ranks` (l.116), once for every
 //       shift of a round, and the round's position `arange`: out_s[i] =
-//       rank[i + s], or the marker -(local i + 1) past the end of i's chunk.
+//       rank[i + s], or the marker -(local i + 1) past the end of i's chunk;
+//       on a lifted plane rank[i + s] + s, or chunk - 1 - local i, the same
+//       order in non-negative values, so that a round's keys take no more
+//       radix digits than their values need.
 //   head_ranks_kernel  replaces the neighbour diff, `lax.cummax` and tied
 //       count of `_ranks_sorted_only` / `_heads_and_tied` (l.143-172):
 //       rank_s[j] = the last slot <= j where some key plane differs from
 //       the slot before (slot 0 always counts), and the number of slots
-//       whose group holds two or more. On one shard of the global build
+//       whose group holds two or more, and on request that count plus
+//       the number of groups times 2^32. On one shard of the global build
 //       (stringsearch_tpu/parallel/global_sa.py:120,
 //       `_headslot_ranks_from_sorted`, and the neighbour diff before it)
 //       slot 0 is compared with the previous shard's last key tuple, a
@@ -37,6 +42,11 @@
 //       plane s at i is the window [r, r + L) of the two shards that the
 //       round's ppermutes delivered, or the marker -(global i + 1) where
 //       i + h lies past the padded text.
+//   dense_ranks_kernel has no counterpart in the JAX package: the dense
+//       rank of a sorted slot, dense[j] = (heads at or before j) - 1, where
+//       slot j is a head when rank_s[j] == j. A full round sorts by these
+//       in place of head slots when its keys then take fewer radix passes
+//       (engines/doubling.py); the two orders are the same.
 //   invert_ranks_kernel, or invert_partition_kernel twice and
 //       invert_place_kernel, replace the 1-key sort of (sa_s, rank_s) in
 //       `_scatter_to_text_order` (stringsearch_tpu/engines/doubling.py:
@@ -51,6 +61,8 @@
 //   shard_shift_planes  one window of L elements in a shift (but for the
 //                 markers), one plane out a shift, and the positions;
 //   head_ranks    every key plane in, one rank plane out;
+//   dense_ranks   the rank plane in, one dense plane out: 8 n bytes in
+//                 int32;
 //   invert_ranks  sa_s and rank_s in, one rank plane out: 12 n bytes in
 //                 int32.
 // What the design does about it:
@@ -80,7 +92,19 @@
 //     flag looks back at all.
 //   * The tied count is local (a slot and its successor's flag): a block
 //     reduction and one 64-bit atomic add a tile into a 0-d device tensor,
-//     which the host reads only when the engine asks (no added sync).
+//     which the host reads only when the engine asks (no added sync). The
+//     group count, where asked for, is the flags' count, added at bit 32
+//     of a second word beside the tied count, so that one read of one
+//     scalar gives both (n < 2^32).
+//   * dense_ranks is a sum across tiles, so every tile looks back (as
+//     sort_pass_kernel does): it publishes its count of heads at once,
+//     then its inclusive count once its warp 0 has summed its
+//     predecessors' counts back to the nearest inclusive one, 32 a step.
+//     A tile of 4096 slots, 16 a thread: 1.21 ms at 2^28 on an H100
+//     against 0.64 ms of bytes, where 2048 took 1.31 ms; a look-back of
+//     64 to 256 words a step, 8192 slots and a back-off in the wait were
+//     no faster. What holds it back is the look-back in every tile, as in
+//     head_ranks over a single group (1.44 ms for the same bytes).
 //   * The invert's stores land at random slots. One store an element
 //     straight from registers costs a 32-byte sector a 4-byte element,
 //     assembled in L2 from stores of many blocks: where the output fits
@@ -126,6 +150,13 @@ constexpr int kScanItems = 8;  // consecutive slots a thread
 constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr int kScanWarps = kScanThreads / 32;
 constexpr int kMaxKeys = 64;
+
+constexpr int kDenseThreads = 256;
+constexpr int kDenseItems = 16;  // consecutive slots a thread
+constexpr int kDenseTile = kDenseThreads * kDenseItems;
+constexpr int kDenseWarps = kDenseThreads / 32;
+// dense_ranks takes head_ranks' scratch: no more tiles than it
+static_assert(kDenseTile >= kScanTile, "a look-back word a tile");
 
 constexpr int kInvertThreads = 512;
 constexpr int kInvertWarps = kInvertThreads / 32;
@@ -304,10 +335,12 @@ template <typename T>
 struct ShiftOut {
   T* plane[kMaxShifts];
   int64_t shift[kMaxShifts];  // each in [0, chunk]
+  unsigned lift;              // bit s set: plane s is lifted
 };
 
 // out.plane[s][i] = rank[i + shift] where the local position l of i in its
-// chunk has l + shift < chunk, else -(l + 1); pos[i] = i unless pos is null.
+// chunk has l + shift < chunk, else -(l + 1); on a lifted plane rank[i +
+// shift] + shift, else chunk - 1 - l. pos[i] = i unless pos is null.
 template <typename T>
 __global__ void __launch_bounds__(kShiftThreads)
     shift_planes_kernel(const T* __restrict__ rank, int64_t n, int64_t chunk,
@@ -328,13 +361,18 @@ __global__ void __launch_bounds__(kShiftThreads)
   for (int s = 0; s < kMaxShifts; ++s) {
     if (s >= count) break;
     const int64_t h = out.shift[s];
+    const bool lift = out.lift >> s & 1;
     T* __restrict__ dst = out.plane[s];
 #pragma unroll
     for (int m = 0; m < kShiftItems; ++m) {
       const int64_t i = t0 + threadIdx.x + m * kShiftThreads;
       if (i < n) {
-        dst[i] = local[m] + h < chunk ? rank[i + h]
-                                      : static_cast<T>(-(local[m] + 1));
+        if (local[m] + h < chunk) {
+          dst[i] = lift ? static_cast<T>(rank[i + h] + h) : rank[i + h];
+        } else {
+          dst[i] = static_cast<T>(lift ? chunk - 1 - local[m]
+                                       : -(local[m] + 1));
+        }
       }
     }
   }
@@ -452,17 +490,20 @@ __device__ __forceinline__ int64_t decode_head(uint64_t w) {
 
 // prev: null, or one int64 a key plane, slot 0's predecessor (null: slot
 // 0 starts a group). rank_out[j] = offset + the last group start <= j, or
-// -1 where there is none.
+// -1 where there is none. packed: null, or the tied count plus the count
+// of group starts times 2^32.
 template <typename Idx>
 __global__ void __launch_bounds__(kScanThreads)
     head_ranks_kernel(KeyPlanes planes, int keys, int64_t n,
                       const int64_t* __restrict__ prev, int64_t offset,
                       Idx* __restrict__ rank_out,
                       unsigned long long* __restrict__ count,
+                      unsigned long long* __restrict__ packed,
                       uint64_t* __restrict__ words,
                       unsigned* __restrict__ tile_counter) {
   __shared__ int64_t warp_last[kScanWarps];
   __shared__ unsigned warp_tied[kScanWarps];
+  __shared__ unsigned warp_heads[kScanWarps];
   __shared__ int64_t prefix;
   __shared__ int tile_slot;
   __shared__ bool first_flag;
@@ -488,11 +529,12 @@ __global__ void __launch_bounds__(kScanThreads)
   }
   if (j0 == 0 && prev == nullptr) flag[0] = true;
   int64_t last = -1;  // this thread's last flagged slot
-  unsigned tied = 0;
+  unsigned tied = 0, heads = 0;
 #pragma unroll
   for (int m = 0; m < kScanItems; ++m) {
     if (j0 + m < n) {
       if (flag[m]) last = j0 + m;
+      heads += flag[m];
       tied += !flag[m] || (j0 + m + 1 < n && !flag[m + 1]);
     }
   }
@@ -508,8 +550,10 @@ __global__ void __launch_bounds__(kScanThreads)
   int64_t excl = __shfl_up_sync(kFull, incl, 1);
   if (lane == 0) excl = -1;
   tied = __reduce_add_sync(kFull, tied);
+  if (packed != nullptr) heads = __reduce_add_sync(kFull, heads);
   if (lane == 31) warp_last[warp] = incl;
   if (lane == 0) warp_tied[warp] = tied;
+  if (lane == 0) warp_heads[warp] = heads;
   __syncthreads();
   int64_t tile_last = -1;
 #pragma unroll
@@ -523,10 +567,17 @@ __global__ void __launch_bounds__(kScanThreads)
     store_word(words + tile, tile_last >= 0
                                  ? kInclusive | static_cast<uint64_t>(tile_last)
                                  : kNone);
-    unsigned total = 0;
+    unsigned total = 0, starts = 0;
 #pragma unroll
-    for (int w = 0; w < kScanWarps; ++w) total += warp_tied[w];
+    for (int w = 0; w < kScanWarps; ++w) {
+      total += warp_tied[w];
+      starts += warp_heads[w];
+    }
     if (total) atomicAdd(count, static_cast<unsigned long long>(total));
+    if (packed != nullptr && (total || starts)) {
+      atomicAdd(packed, static_cast<unsigned long long>(total) +
+                            (static_cast<unsigned long long>(starts) << 32));
+    }
   }
 
   // the look-back: only a tile whose first slot is not flagged needs the
@@ -570,6 +621,122 @@ __global__ void __launch_bounds__(kScanThreads)
     r[m] = static_cast<Idx>(run < 0 ? run : run + offset);
   }
   if (j0 < n) store_run(rank_out + j0, r, n - j0);
+}
+
+// ---------------------------------------------------------------------------
+// dense_ranks
+// ---------------------------------------------------------------------------
+
+// Look-back words of dense_ranks: status << 62 | a count of heads. 0: not
+// published; kAggregate: the tile's own count; kInclusive (as above): the
+// count up to and including the tile.
+constexpr uint64_t kAggregate = 1ull << 62;
+
+// dense[j] = (slots j' <= j with rank_s[j'] == j') - 1, one tile of
+// kDenseTile slots a block, claimed in order from tile_counter. dense may
+// be rank_s: a thread reads its slots before the block's first barrier
+// and writes the same slots after its last (so neither is __restrict__).
+template <typename Idx>
+__global__ void __launch_bounds__(kDenseThreads)
+    dense_ranks_kernel(const Idx* rank_s, int64_t n, Idx* dense,
+                       uint64_t* __restrict__ words,
+                       unsigned* __restrict__ tile_counter) {
+  __shared__ unsigned warp_sum[kDenseWarps];
+  __shared__ uint64_t prefix;
+  __shared__ int tile_slot;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) tile_slot = static_cast<int>(atomicAdd(tile_counter, 1u));
+  __syncthreads();
+  const int64_t tile = tile_slot;
+  const int64_t j0 =
+      tile * kDenseTile + static_cast<int64_t>(tid) * kDenseItems;
+
+  bool head[kDenseItems];
+  unsigned mine = 0;
+  if (j0 < n) {
+    Idx r[kDenseItems];
+    if (j0 + kDenseItems <= n && aligned16(rank_s + j0)) {
+      load_vec(rank_s + j0, r);
+    } else {
+#pragma unroll
+      for (int m = 0; m < kDenseItems; ++m) {
+        r[m] = j0 + m < n ? rank_s[j0 + m] : Idx(-1);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kDenseItems; ++m) {
+      head[m] = static_cast<int64_t>(r[m]) == j0 + m;
+      mine += head[m];
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kDenseItems; ++m) head[m] = false;
+  }
+
+  // the block's exclusive sum: warps, then the warps before
+  unsigned incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned o = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += o;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  uint64_t excl = incl - mine;
+  uint64_t tile_total = 0;
+#pragma unroll
+  for (int w = 0; w < kDenseWarps; ++w) {
+    if (w < warp) excl += warp_sum[w];
+    tile_total += warp_sum[w];
+  }
+  if (tid == 0) {
+    store_word(words + tile, (tile == 0 ? kInclusive : kAggregate) |
+                                 tile_total);
+  }
+
+  if (tile > 0) {
+    if (warp == 0) {
+      // the predecessors' counts, nearest first, back to the first
+      // inclusive one (before tile 0: an inclusive 0)
+      uint64_t sum = 0;
+      for (int64_t at = tile - 1;; at -= 32) {
+        const int64_t t = at - lane;
+        uint64_t w = t >= 0 ? load_word(words + t) : kInclusive;
+        while (__any_sync(kFull, (w & ~kValueMask) == 0)) {
+          if ((w & ~kValueMask) == 0) w = load_word(words + t);
+        }
+        const unsigned done =
+            __ballot_sync(kFull, (w & ~kValueMask) == kInclusive);
+        const int first = done ? __ffs(done) - 1 : 31;
+        uint64_t part = lane <= first ? w & kValueMask : 0;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) {
+          part += __shfl_xor_sync(kFull, part, d);
+        }
+        sum += part;
+        if (done) break;
+      }
+      if (lane == 0) {
+        prefix = sum;
+        store_word(words + tile, kInclusive | (sum + tile_total));
+      }
+    }
+    __syncthreads();
+    excl += prefix;
+  }
+
+  if (j0 < n) {
+    Idx d[kDenseItems];
+    int64_t run = static_cast<int64_t>(excl) - 1;
+#pragma unroll
+    for (int m = 0; m < kDenseItems; ++m) {
+      run += head[m];
+      d[m] = static_cast<Idx>(run);
+    }
+    store_run(dense + j0, d, n - j0);
+  }
 }
 
 inline int blocks_of(int64_t n, int tile) {
@@ -922,19 +1089,24 @@ int ss_pack_keys(const void* text, int64_t n, int64_t chunk, int keys,
 
 // Shifted copies of a rank plane of n elements of elem_bytes (4 or 8):
 // outs[s][i] = rank[i + shifts[s]] inside i's chunk, else -(local i + 1);
-// shifts[s] in [0, chunk]; 1 <= count <= kMaxShifts output planes, and the
-// position at pos_out unless it is null. outs and shifts are host arrays.
+// where bit s of lift is set, rank[i + shifts[s]] + shifts[s], else chunk
+// - 1 - local i (the caller keeps those sums inside the type); shifts[s]
+// in [0, chunk]; 1 <= count <= kMaxShifts output planes, and the position
+// at pos_out unless it is null. outs and shifts are host arrays.
 int ss_shift_planes(const void* rank, int64_t n, int64_t chunk,
                     int elem_bytes, int count, void** outs,
-                    const int64_t* shifts, void* pos_out, void* stream) {
+                    const int64_t* shifts, unsigned lift, void* pos_out,
+                    void* stream) {
   if (n < 1 || chunk < 1 || n % chunk != 0 || count < 0 ||
-      count > kMaxShifts || (elem_bytes != 4 && elem_bytes != 8)) {
+      count > kMaxShifts || (elem_bytes != 4 && elem_bytes != 8) ||
+      (lift >> count) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = blocks_of(n, kShiftTile);
   if (elem_bytes == 4) {
     ShiftOut<int> out{};
+    out.lift = lift;
     for (int q = 0; q < count; ++q) {
       if (shifts[q] < 0 || shifts[q] > chunk) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -947,6 +1119,7 @@ int ss_shift_planes(const void* rank, int64_t n, int64_t chunk,
         static_cast<int*>(pos_out));
   } else {
     ShiftOut<int64_t> out{};
+    out.lift = lift;
     for (int q = 0; q < count; ++q) {
       if (shifts[q] < 0 || shifts[q] > chunk) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -1019,8 +1192,8 @@ int ss_shard_shift_planes(int64_t n, int64_t offset, int elem_bytes,
                                      rs, limits, pos_out, s);
 }
 
-// Bytes of scratch `ss_head_ranks` needs for n slots: a look-back word a
-// tile and the tile counter.
+// Bytes of scratch `ss_head_ranks` and `ss_dense_ranks` need for n slots:
+// a look-back word a tile and the tile counter.
 int64_t ss_head_ranks_scratch_bytes(int64_t n) {
   return (static_cast<int64_t>(blocks_of(n, kScanTile)) + 1) * 8;
 }
@@ -1033,11 +1206,15 @@ int64_t ss_head_ranks_scratch_bytes(int64_t n) {
 // null, slot 0 always counts. *count (a device int64) = the slots j that
 // do not count, or whose slot j + 1 < n does not: the slots whose group
 // holds two or more, where the group goes no further than slot n - 1.
-// scratch: ss_head_ranks_scratch_bytes(n), 8-byte aligned.
+// Where packed is 1, count is two device int64 and count[1] = count[0] +
+// 2^32 times the slots that count; that needs n < 2^32. scratch:
+// ss_head_ranks_scratch_bytes(n), 8-byte aligned.
 int ss_head_ranks(const void* const* planes, const int* plane_bytes, int keys,
                   int64_t n, const void* prev, int64_t offset, void* rank_out,
-                  int idx_bytes, void* count, void* scratch, void* stream) {
-  if (n < 1 || keys < 0 || keys > kMaxKeys ||
+                  int idx_bytes, void* count, int packed, void* scratch,
+                  void* stream) {
+  if (n < 1 || keys < 0 || keys > kMaxKeys || packed < 0 || packed > 1 ||
+      (packed && n >= (int64_t(1) << 32)) ||
       (idx_bytes != 4 && idx_bytes != 8) ||
       (reinterpret_cast<uintptr_t>(scratch) & 7) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1056,17 +1233,46 @@ int ss_head_ranks(const void* const* planes, const int* plane_bytes, int keys,
   auto* counter = reinterpret_cast<unsigned*>(words + tiles);
   cudaError_t err = cudaMemsetAsync(scratch, 0, ss_head_ranks_scratch_bytes(n),
                                     s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(count, 0, 8, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(count, 0, 8 + 8 * packed, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* c = static_cast<unsigned long long*>(count);
+  auto* g = packed ? c + 1 : nullptr;
   if (idx_bytes == 4) {
     head_ranks_kernel<int><<<tiles, kScanThreads, 0, s>>>(
         kp, keys, n, static_cast<const int64_t*>(prev), offset,
-        static_cast<int*>(rank_out), c, words, counter);
+        static_cast<int*>(rank_out), c, g, words, counter);
   } else {
     head_ranks_kernel<int64_t><<<tiles, kScanThreads, 0, s>>>(
         kp, keys, n, static_cast<const int64_t*>(prev), offset,
-        static_cast<int64_t*>(rank_out), c, words, counter);
+        static_cast<int64_t*>(rank_out), c, g, words, counter);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dense ranks of n sorted slots of idx_bytes (4 or 8): dense[j] = (the
+// slots j' <= j with rank_s[j'] == j') - 1; dense may be rank_s. scratch:
+// ss_head_ranks_scratch_bytes(n), 8-byte aligned.
+int ss_dense_ranks(const void* rank_s, int64_t n, int idx_bytes, void* dense,
+                   void* scratch, void* stream) {
+  if (n < 1 || (idx_bytes != 4 && idx_bytes != 8) ||
+      (reinterpret_cast<uintptr_t>(scratch) & 7) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = blocks_of(n, kDenseTile);
+  auto* words = static_cast<uint64_t*>(scratch);
+  auto* counter = reinterpret_cast<unsigned*>(words + tiles);
+  cudaError_t err =
+      cudaMemsetAsync(scratch, 0, (static_cast<int64_t>(tiles) + 1) * 8, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (idx_bytes == 4) {
+    dense_ranks_kernel<int><<<tiles, kDenseThreads, 0, s>>>(
+        static_cast<const int*>(rank_s), n, static_cast<int*>(dense), words,
+        counter);
+  } else {
+    dense_ranks_kernel<int64_t><<<tiles, kDenseThreads, 0, s>>>(
+        static_cast<const int64_t*>(rank_s), n, static_cast<int64_t*>(dense),
+        words, counter);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -150,6 +150,21 @@ def plan(operands, num_keys: int = 1, digit_bits: int = DIGIT_BITS):
     return hist, live
 
 
+def live_digits(spans, digit_bits: int = DIGIT_BITS) -> int:
+    """The passes `plan` marks live over one int32 key plane whose values
+    fill `spans`, inclusive (low, high) pairs: a pass is dead where every
+    value has the same digit. The digits are those of the values' bits
+    XOR 0x80000000, an order-keeping shift by 2^31 of the int32 range."""
+    live = 0
+    for shift in range(0, 32, digit_bits):
+        ends = [((a + 2**31) >> shift, (b + 2**31) >> shift)
+                for a, b in spans]
+        same = all(a == b for a, b in ends) and len(
+            {a % (1 << digit_bits) for a, _ in ends}) == 1
+        live += not same
+    return live
+
+
 def design_bytes(n: int, c: int, num_keys: int, live,
                  digit_bits: int = DIGIT_BITS, tile: int = TILE) -> int:
     """Device-memory bytes the kernel moves for a sort of c planes by

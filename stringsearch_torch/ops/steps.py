@@ -7,9 +7,14 @@ and the partitioned build, and `build_ints_with_isa` under dc3 and bstar.
     `_pack4_keys`, stringsearch_tpu/engines/doubling.py:83, and its
     position `arange`);
   * `shift_planes`: a round's shifted rank planes and positions (its
-    `_shift_ranks`, l.116, once a shift);
-  * `head_ranks`: head-slot ranks and the tied count of a sorted tuple (its
-    `_ranks_sorted_only`, l.151, with `_heads_and_tied`'s `cummax`);
+    `_shift_ranks`, l.116, once a shift), on request with non-negative
+    past-the-end markers;
+  * `head_ranks`: head-slot ranks, the tied count and the group count of a
+    sorted tuple (its `_ranks_sorted_only`, l.151, with `_heads_and_tied`'s
+    `cummax`);
+  * `dense_ranks`: the dense ranks of a sorted order, each slot's group
+    numbered from 0 (no counterpart in the JAX package: a full round sorts
+    by them where its keys then take fewer radix passes);
   * `shard_head_ranks`: the same kernel on one shard of the global build's
     sorted order, slot 0 compared with the previous shard's last key
     tuple and the heads as global slots (the neighbour diff of
@@ -48,7 +53,7 @@ global build's `shard_pack_keys`, `shard_shift_planes` and
 (elements, bytes an element) of each plane the step reads and writes: the
 bytes its kernel must move (of a shard shift's windows, the parts it
 reads; of `shard_pack_keys`, the chunk, then the halo where there is
-one).
+one). `dense_ranks` has no span of its own: it runs in its round's.
 
 `segment_heads`, `heads_and_tied` and `last_flagged` (the
 cumsum-and-scatter form of the reference's `cummax`) stay plain: the
@@ -82,6 +87,8 @@ _MAX_KEYS = 64
 PACK_TILE = 1024
 SHIFT_TILE = 1024
 SCAN_TILE = 2048
+# kDenseTile of csrc/steps.cu: the slots a block of `dense_ranks` takes
+DENSE_TILE = 4096
 # kInvertThreads times the int32 items a thread of csrc/steps.cu: the
 # elements a block of `invert_ranks` takes (int64: half)
 INVERT_TILE = 8192
@@ -91,7 +98,7 @@ INVERT_TILE = 8192
 # shard of the global build).
 launches = {"pack_keys": 0, "shift_planes": 0, "head_ranks": 0,
             "shard_head_ranks": 0, "shard_pack_keys": 0,
-            "shard_shift_planes": 0, "invert_ranks": 0}
+            "shard_shift_planes": 0, "invert_ranks": 0, "dense_ranks": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -101,9 +108,10 @@ LIBRARY = _build.Library("steps", _SOURCE, {
     "ss_pack_keys": (_INT, [_P, _I64, _I64, _INT, _I64, _P, _P, _P, _INT,
                             _P]),
     "ss_shift_planes": (_INT, [_P, _I64, _I64, _INT, _INT, _PTRS,
-                               ctypes.POINTER(_I64), _P, _P]),
+                               ctypes.POINTER(_I64), ctypes.c_uint, _P, _P]),
     "ss_head_ranks": (_INT, [_PTRS, ctypes.POINTER(_INT), _INT, _I64, _P,
-                             _I64, _P, _INT, _P, _P, _P]),
+                             _I64, _P, _INT, _P, _INT, _P, _P]),
+    "ss_dense_ranks": (_INT, [_P, _I64, _INT, _P, _P, _P]),
     "ss_shard_pack_keys": (_INT, [_P, _I64, _P, _I64, _INT, _I64, _P, _P,
                                   _I64, _INT, _P]),
     "ss_shard_shift_planes": (_INT, [_I64, _I64, _INT, _INT, _PTRS, _PTRS,
@@ -214,28 +222,35 @@ def pack_keys(text, depth: int, chunk=None, idx=_I32) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _check_shift(rank, shifts) -> list:
+def _check_shift(rank, shifts, lift) -> tuple:
+    """(shifts, lifts): the shifts as ints and a bool a shift."""
     if rank.dtype not in _IDX or rank.dim() != 1:
         raise TypeError(f"rank must be a 1-D int32 or int64 tensor, got "
                         f"{rank.dtype} of {rank.dim()} dims")
     shifts = [int(s) for s in shifts]
     if any(s < 0 for s in shifts):
         raise ValueError(f"shifts must be >= 0, got {shifts}")
-    return shifts
+    lifts = ([bool(lift)] * len(shifts) if isinstance(lift, bool)
+             else [bool(x) for x in lift])
+    if len(lifts) != len(shifts):
+        raise ValueError(f"lift must be a bool or one a shift, got "
+                         f"{len(lifts)} for {len(shifts)} shifts")
+    return shifts, lifts
 
 
-def plain_shift_planes(rank, shifts, chunk=None) -> list:
+def plain_shift_planes(rank, shifts, chunk=None, lift=False) -> list:
     """`shift_planes` as a chain of PyTorch ops, on rank's device."""
-    shifts = _check_shift(rank, shifts)
+    shifts, lifts = _check_shift(rank, shifts, lift)
     n = rank.shape[0]
     c = chunk_len(n, chunk)
     rows = rank.view(n // c, c)
     out = []
-    for h in shifts:
+    for h, up in zip(shifts, lifts):
         h_c = min(h, c)
-        tail = -(torch.arange(c - h_c, c, dtype=rank.dtype,
-                              device=rank.device) + 1)
-        out.append(torch.cat([rows[:, h_c:], tail.expand(rows.shape[0], h_c)],
+        local = torch.arange(c - h_c, c, dtype=rank.dtype, device=rank.device)
+        tail = c - 1 - local if up else -(local + 1)
+        head = rows[:, h_c:] + h_c if up else rows[:, h_c:]
+        out.append(torch.cat([head, tail.expand(rows.shape[0], h_c)],
                              1).view(n))
     out.append(torch.arange(n, dtype=rank.dtype, device=rank.device))
     return out
@@ -243,7 +258,7 @@ def plain_shift_planes(rank, shifts, chunk=None) -> list:
 
 @spanned("ops.shift_planes", lambda out, rank, *a, **k: {
     "reads": planes((rank,)), "writes": planes(out)})
-def shift_planes(rank, shifts, chunk=None) -> list:
+def shift_planes(rank, shifts, chunk=None, lift=False) -> list:
     """[rank shifted by s for each s in `shifts`] + [the position plane].
 
     Entry i of the plane of shift s is rank[i + s], or the marker
@@ -254,10 +269,18 @@ def shift_planes(rank, shifts, chunk=None) -> list:
     first). A shift of `chunk` or more is clamped to `chunk`, where every
     entry is a marker. All planes have rank's dtype; `rank` itself is not
     copied.
+
+    `lift` (a bool, or one a shift) lifts a plane of non-negative ranks:
+    rank[i + s] + s, and chunk - 1 - local i past the end, with s the
+    clamped shift. The markers lie in [0, s), below every lifted rank, and
+    still fall as i grows, so the plane sorts as the unlifted one does;
+    its values are the ranks' bound plus s at most, where the unlifted
+    plane reaches down to -chunk. The caller keeps rank + s inside the
+    dtype.
     """
-    shifts = _check_shift(rank, shifts)
+    shifts, lifts = _check_shift(rank, shifts, lift)
     if not _build.on_cuda(rank.device, "rank"):
-        return plain_shift_planes(rank, shifts, chunk)
+        return plain_shift_planes(rank, shifts, chunk, lifts)
     n = rank.shape[0]
     c = chunk_len(n, chunk)
     rank = rank.contiguous()
@@ -270,9 +293,11 @@ def shift_planes(rank, shifts, chunk=None) -> list:
         planes = (_P * _MAX_SHIFTS)(*(t.data_ptr()
                                       for t in out[g:g + _MAX_SHIFTS]))
         clamped = (ctypes.c_int64 * _MAX_SHIFTS)(*(min(h, c) for h in group))
+        mask = sum(1 << q for q, up in enumerate(lifts[g:g + _MAX_SHIFTS])
+                   if up)
         _launch("shift_planes", "ss_shift_planes", rank.device,
                 rank.data_ptr(), n, c, rank.element_size(), len(group),
-                planes, clamped, pos.data_ptr() if g == 0 else None)
+                planes, clamped, mask, pos.data_ptr() if g == 0 else None)
     return out + [pos]
 
 
@@ -332,22 +357,35 @@ def plain_head_ranks(out):
     new_flag = torch.cat(
         [torch.ones((min(n, 1),), dtype=torch.bool, device=sa_s.device), diff])
     rank_s, tied = heads_and_tied(new_flag, j)
-    return sa_s, rank_s, tied.sum()
+    tied = tied.sum()
+    counts = torch.stack([tied, tied + (new_flag.sum() << 32)])
+    return sa_s, rank_s, counts[0]
+
+
+def read_counts(count) -> tuple:
+    """(tied count, group count) on the host of a count that `head_ranks`
+    returned, from one read of one scalar: the entry after `count`, the
+    tied count plus the group count times 2^32."""
+    packed = int(count.as_strided((), (), count.storage_offset() + 1))
+    return packed & 0xFFFFFFFF, packed >> 32
 
 
 def _launch_heads(kernel: str, keys, n: int, prev, offset: int, idx,
-                  device):
+                  device, groups: bool = False):
     """One launch of the head-ranks scan over `keys` ([n] planes on the
-    CUDA `device`); returns (rank_s of dtype idx, count)."""
+    CUDA `device`); returns (rank_s of dtype idx, count), count entry 0 of
+    a [2] tensor whose entry 1 is the count plus the group count times
+    2^32 where `groups` is set."""
     keys = [p.contiguous() for p in keys]
     if len(keys) > _MAX_KEYS:
         raise ValueError(f"head_ranks takes at most {_MAX_KEYS} key planes "
                          f"on CUDA, got {len(keys)}")
     rank_s = torch.empty((n,), dtype=idx, device=device)
+    counts = (torch.zeros if not n else torch.empty)(
+        (2 if groups else 1,), dtype=torch.int64, device=device)
     if not n:
-        return rank_s, torch.zeros((), dtype=torch.int64, device=device)
-    # the launch zeroes the count and the scratch itself
-    count = torch.empty((), dtype=torch.int64, device=device)
+        return rank_s, counts[0]
+    # the launch zeroes the counts and the scratch itself
     words = load_library().ss_head_ranks_scratch_bytes(n) // 8
     scratch = torch.empty((words,), dtype=torch.int64, device=device)
     planes = (_P * max(len(keys), 1))(*(k.data_ptr() for k in keys))
@@ -355,9 +393,9 @@ def _launch_heads(kernel: str, keys, n: int, prev, offset: int, idx,
         *(k.element_size() for k in keys))
     _launch(kernel, "ss_head_ranks", device, planes, widths,
             len(keys), n, None if prev is None else prev.data_ptr(), offset,
-            rank_s.data_ptr(), rank_s.element_size(), count.data_ptr(),
-            scratch.data_ptr())
-    return rank_s, count
+            rank_s.data_ptr(), rank_s.element_size(), counts.data_ptr(),
+            int(groups), scratch.data_ptr())
+    return rank_s, counts[0]
 
 
 @spanned("ops.head_ranks", lambda res, out: {
@@ -368,16 +406,71 @@ def head_ranks(out):
     rank_s[j], of sa_s's dtype, is the last slot <= j whose keys differ
     from the slot before's (slot 0 counts), that is the slot of j's group
     head; count, a 0-d int64 tensor on the planes' device, is the number of
-    slots whose group holds two or more. Reading it is the caller's only
-    host sync.
+    slots whose group holds two or more. It is the first entry of a [2]
+    tensor whose second is count plus the number of groups times 2^32
+    (n < 2^32), so that `read_counts(count)` reads both at once. Reading
+    one of them is the caller's only host sync.
     """
     out = _check_heads(out)
     sa_s = out[-1]
     if not _build.on_cuda(sa_s.device, "the sorted planes"):
         return plain_head_ranks(out)
+    if sa_s.shape[0] >= 1 << 32:
+        raise ValueError("head_ranks takes n < 2^32 on CUDA")
     rank_s, count = _launch_heads("head_ranks", out[:-1], sa_s.shape[0],
-                                  None, 0, sa_s.dtype, sa_s.device)
+                                  None, 0, sa_s.dtype, sa_s.device,
+                                  groups=True)
     return sa_s, rank_s, count
+
+
+# ---------------------------------------------------------------------------
+# dense_ranks
+# ---------------------------------------------------------------------------
+
+
+def _check_dense(rank_s, out) -> None:
+    if rank_s.dtype not in _IDX or rank_s.dim() != 1:
+        raise TypeError(f"rank_s must be a 1-D int32 or int64 tensor, got "
+                        f"{rank_s.dtype} of {rank_s.dim()} dims")
+    if out is not None and (out.dtype != rank_s.dtype
+                            or out.shape != rank_s.shape
+                            or out.device != rank_s.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [{rank_s.shape[0]}] "
+                         f"{rank_s.dtype} plane on {rank_s.device}")
+
+
+def plain_dense_ranks(rank_s, out=None):
+    """`dense_ranks` as a chain of PyTorch ops, on rank_s's device."""
+    _check_dense(rank_s, out)
+    j = torch.arange(rank_s.shape[0], dtype=rank_s.dtype,
+                     device=rank_s.device)
+    dense = torch.cumsum(rank_s == j, 0, dtype=rank_s.dtype) - 1
+    return dense if out is None else out.copy_(dense)
+
+
+def dense_ranks(rank_s, out=None):
+    """The dense ranks of a sorted order's head-slot ranks: dense[j] = the
+    number of heads at or before slot j, less one, where slot j is a head
+    when rank_s[j] == j. Each group's slot of its first member becomes the
+    group's index among the groups, in [0, groups); the order of the ranks
+    is kept. Returns a new plane of rank_s's dtype, or `out` (a contiguous
+    plane of rank_s's dtype and length, rank_s itself too) written.
+    """
+    _check_dense(rank_s, out)
+    if not _build.on_cuda(rank_s.device, "rank_s"):
+        return plain_dense_ranks(rank_s, out)
+    n = rank_s.shape[0]
+    rank_s = rank_s.contiguous()
+    dense = torch.empty_like(rank_s) if out is None else out
+    if n:
+        words = load_library().ss_head_ranks_scratch_bytes(n) // 8
+        scratch = torch.empty((words,), dtype=torch.int64,
+                              device=rank_s.device)
+        _launch("dense_ranks", "ss_dense_ranks", rank_s.device,
+                rank_s.data_ptr(), n, rank_s.element_size(),
+                dense.data_ptr(), scratch.data_ptr())
+    return dense
 
 
 # ---------------------------------------------------------------------------
